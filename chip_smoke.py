@@ -5,29 +5,42 @@
 
 Phases, in order; any failure exits non-zero before the result lines:
 
-  1. card    — the GPU's name and power limit (nvidia-smi); TF32 off for
-               float32 matmuls and convolutions.
-  2. build   — compile every CUDA kernel of the serving path from
-               ``src/repro_torch/csrc`` into ``build/kernels/``.
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               at the serving path's shapes and at edge shapes (GQA, window,
-               q_offset, a non-pow2 sequence), bf16 and float32.
-  4. serve   — full-width OLMo-1B (random bf16 weights from a seed) served
-               by the continuous ``BatchedServer`` over the seeded
-               heavy-tail mix with one prompt per pow2 prefill bucket up
-               to 1024; the kernels' launch counts are zeroed just
-               before and read just after.  The same requests then run
-               one at a time (gang mode at batch 1, the sequential
-               reference), and the share of identical token streams is
-               reported with the top-2 logit gap at each divergence.
-  5. model   — the reduced OLMo-1B in float32 on the card (kernel path) vs
-               the same weights on the CPU (plain path), and served on the
-               card: continuous streams equal the one-at-a-time ones.
-  6. timing  — each kernel, its plain version and the one PyTorch call that
-               computes the same function, with CUDA events, beside the
-               card's bound for the work.
-  7. profile — the main path's requests again, warm: tokens/s and p50, then
-               under torch.profiler the device's busy share and top kernels.
+  1. card          — the GPU's name and power limit (nvidia-smi); TF32 off
+                     for float32 matmuls and convolutions.
+  2. build         — compile every CUDA kernel of the serving paths from
+                     ``src/repro_torch/csrc`` into ``build/kernels/``, one
+                     ``nvcc`` per source, all at once.
+  3. kernels       — each kernel against its plain PyTorch version on the
+                     card, at the serving paths' shapes and at edge shapes,
+                     bf16 and float32: flash attention (GQA, window,
+                     q_offset, non-pow2) and the SSD scan (y and the final
+                     state; mamba2's and hymba's prefill widths 2…1024,
+                     G = 2, non-pow2 S).
+  4. serve         — full-width OLMo-1B (random bf16 weights from a seed)
+                     served by the continuous ``BatchedServer`` over the
+                     seeded heavy-tail mix with one prompt per pow2 prefill
+                     bucket up to 1024; the kernels' launch counts are
+                     zeroed just before and read just after.  The same
+                     requests then run one at a time (gang mode at batch 1,
+                     the sequential reference), and the share of identical
+                     token streams is reported with the top-2 logit gap at
+                     each divergence.
+  5. serve-ssm     — the same for full-width mamba2-780m (48 SSD layers):
+                     every prefill runs the SSD kernel once per layer.
+  6. serve-hybrid  — full-width hymba-1.5b, 8 requests at widths 2…1024:
+                     every prefill runs flash attention and the SSD kernel
+                     once per layer each.
+  7. model         — reduced OLMo-1B, mamba2-780m and hymba-1.5b in float32
+                     on the card (kernel path) vs the same weights on the
+                     CPU (plain path), prefill at widths 24 and 2 plus 3
+                     decode steps; then each served on the card: continuous
+                     streams equal the one-at-a-time ones.
+  8. timing        — each kernel, its plain version and the one PyTorch call
+                     that computes the same function (none for SSD), with
+                     CUDA events, beside the card's bound for the work.
+  9. profile       — the OLMo-1B and mamba2-780m serves again, warm: tokens/s
+                     and p50, then under torch.profiler the device's busy
+                     share and top kernels.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The port imports no jax and nothing of
@@ -42,6 +55,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,16 +65,29 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak, FLOP/s
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3, bytes/s
 TOL = {torch.bfloat16: 5.0 * 2.0 ** -8,                      # inputs rounded, f32 accumulation
        torch.float32: 170.0 * float(np.finfo(np.float32).eps)}  # rounding inside the reductions
+SSD_HEADROOM = 4.0           # tests/test_kernels.py: the scan's chunk hand-offs
+SSD_STATE_TOL = 1e-3         # float32 final state, absolute and relative
 SEED = 17
 # (batch, seq_q, seq_k, heads, kv_heads, head_dim, window, q_offset)
 ATTN_CASES = [
     # OLMo-1B prefill shapes: every pow2 prompt width the server can give
     *((1, w, w, 16, 16, 128, 0, 0) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
+    # hymba-1.5b prefill shapes: GQA 25->5, head_dim 64, window 2048 (wider than any prompt)
+    *((1, w, w, 25, 5, 64, 2048, 0) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
     (2, 256, 256, 32, 8, 128, 0, 0),      # GQA
     (1, 300, 300, 16, 16, 128, 48, 0),    # sliding window
     (1, 100, 228, 8, 8, 64, 0, 128),      # q_offset > 0 (chunked prefill)
     (2, 77, 77, 4, 2, 32, 0, 0),          # non-pow2, ragged tiles
     (1, 40, 40, 4, 4, 16, 0, 0),
+]
+# (batch, seq, heads, head_dim, state, groups)
+SSD_CASES = [
+    # mamba2-780m and hymba-1.5b prefill shapes: every pow2 prompt width
+    *((1, w, 48, 64, 128, 1) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
+    *((1, w, 25, 128, 16, 1) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
+    (2, 256, 8, 64, 128, 2),             # G = 2 grouping, batch 2
+    (1, 300, 48, 64, 128, 1),            # non-pow2 S: a ragged last chunk
+    (3, 77, 4, 16, 16, 1),               # P 16, ragged
 ]
 
 
@@ -69,6 +96,20 @@ def _import_port():
         sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.flash_attention import kernel, ref
     return kernel, ref
+
+
+def _kernels():
+    """The wrappers whose ``launches`` count the main paths' kernel launches."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd import kernel as ssd
+    return {"flash_attention": fa.flash_attention, "ssd": ssd.ssd}
+
+
+def _expected_launches(cfg, prefills: int) -> dict:
+    """One launch per layer per prefill of each kernel the family runs."""
+    uses = {"flash_attention": cfg.family in ("dense", "hybrid"),
+            "ssd": cfg.family in ("ssm", "hybrid")}
+    return {k: prefills * cfg.n_layers if used else 0 for k, used in uses.items()}
 
 
 # --------------------------------------------------------------------- card
@@ -90,7 +131,7 @@ def phase_build() -> None:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    libs = build.build(["flash_attention"])
+    libs = build.build(["flash_attention", "ssd"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_name(path.name + ".log")
@@ -131,6 +172,53 @@ def phase_kernels(device) -> dict:
     return errs
 
 
+def _ssd_inputs(case, dtype, device, seed):
+    """x, dt (softplus'd), A (< 0), B, C, D; B and C of variance N^-1/2, so
+    C·B has unit variance as after the model's projections (unit B, C at
+    N = 128 make terms of y ~10² that cancel beyond any f32 tolerance)."""
+    b, s, h, p, n, g = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    x, B, C = mk(b, s, h, p).to(dtype), (mk(b, s, g, n) / n ** 0.25).to(dtype), \
+        (mk(b, s, g, n) / n ** 0.25).to(dtype)
+    dt = torch.nn.functional.softplus(mk(b, s, h))
+    A = -torch.exp(0.5 * mk(h))
+    D = 1.0 + 0.1 * mk(h)
+    return x, dt, A, B, C, D
+
+
+def phase_kernels_ssd(device) -> dict:
+    """SSD kernel vs the plain ``ssd_chunked`` on the card, y and the final
+    state; returns the max abs errors of y per dtype and of the state."""
+    from repro_torch.kernels.ssd import kernel, ref
+
+    errs, state_worst = {}, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = 0.0
+        tol = TOL[dtype] * SSD_HEADROOM
+        for i, case in enumerate(SSD_CASES):
+            t = _ssd_inputs(case, dtype, device, seed=2000 + i)
+            y, st = kernel.ssd(*t, return_state=True)
+            wy, ws = ref.ssd_chunked(*t, chunk=ref.align_chunk(64, case[1]), return_state=True)
+            torch.cuda.synchronize()
+            err = (y.float() - wy.float()).abs()
+            serr = (st - ws).abs()
+            if (not torch.isfinite(y).all() or not torch.isfinite(st).all()
+                    or (err > tol + tol * wy.float().abs()).any()
+                    or (serr > SSD_STATE_TOL + SSD_STATE_TOL * ws.abs()).any()):
+                raise AssertionError(f"ssd kernel disagrees with ssd_chunked at {case} {dtype}: "
+                                     f"max abs err y {err.max().item():.3g} (tol {tol:.3g}), "
+                                     f"state {serr.max().item():.3g} (tol {SSD_STATE_TOL})")
+            worst = max(worst, err.max().item())
+            state_worst = max(state_worst, serr.max().item())
+        errs[str(dtype).replace("torch.", "")] = worst
+        print(f"kernels: ssd vs ssd_chunked, {dtype}: {len(SSD_CASES)} cases, max abs err y "
+              f"{worst:.3g} (tol {tol:.3g} abs + rel)")
+    print(f"kernels: ssd final state (f32), max abs err {state_worst:.3g} "
+          f"(tol {SSD_STATE_TOL} abs + rel)")
+    return {"y": errs, "state": state_worst}
+
+
 # -------------------------------------------------------------------- serve
 def _streams(server) -> dict:
     return {r.rid: list(r.tokens) for r in server.results.values()}
@@ -152,16 +240,18 @@ def _top2_gap(params, cfg, prompt, width, stream, capacity, device) -> float:
     return (top[0] - top[1]).item()
 
 
-def smoke_arrivals(seed: int, n: int, vocab: int, max_width: int, long_max: int) -> list:
+def smoke_arrivals(seed: int, n: int, vocab: int, max_width: int, long_max: int,
+                   widths: Optional[list] = None) -> list:
     """The reference ``heavy_tail`` mix (arrival times, budgets, prompts)
     with the first requests' prompts redrawn, one per pow2 prefill bucket
-    from 2 to ``max_width`` (a length inside the bucket, so most are
-    left-padded).  The mix's own prompts (median 8, at most 64) never reach
-    the wide buckets; this covers every width the kernel serves.  It is a
-    smoke run's coverage, not a sourced traffic mix."""
+    (``widths``: by default every bucket from 2 to ``max_width``), each a
+    length inside its bucket, so most are left-padded.  The mix's own
+    prompts (median 8, at most 64) never reach the wide buckets; this covers
+    every width the kernels serve.  It is a smoke run's coverage, not a
+    sourced traffic mix."""
     from repro_torch.runtime import traffic
 
-    widths = [2 ** k for k in range(1, max_width.bit_length())]
+    widths = widths or [2 ** k for k in range(1, max_width.bit_length())]
     if len(widths) > n:
         raise ValueError(f"{n} requests cannot cover the {len(widths)} buckets up to {max_width}")
     rng = np.random.default_rng(seed)
@@ -175,19 +265,19 @@ def smoke_arrivals(seed: int, n: int, vocab: int, max_width: int, long_max: int)
 
 def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: int,
                     max_width: int, seed: int = SEED, long_max: int = 64,
-                    init_seed: int = 0) -> dict:
+                    init_seed: int = 0, widths: Optional[list] = None) -> dict:
     """Serve the smoke mix through the continuous server, then the same
     requests one at a time (gang mode, batch 1).  Returns counts, metrics
     and the divergences; raises if a request overran its budget, a sync
-    went missing or a prefill bypassed the kernel."""
-    from repro_torch.kernels.flash_attention import kernel
+    went missing or a prefill bypassed a kernel of its family."""
     from repro_torch.models import model as M
     from repro_torch.runtime import serve_loop, traffic
 
     device = torch.device(device)
+    kernels = _kernels()
     gen = torch.Generator(device=device).manual_seed(init_seed)
     params = M.init_params(cfg, gen, device=device)
-    arrivals = smoke_arrivals(seed, n_requests, cfg.vocab_size, max_width, long_max)
+    arrivals = smoke_arrivals(seed, n_requests, cfg.vocab_size, max_width, long_max, widths)
     fetches = {"n": 0}
     real_fetch = serve_loop._host_fetch
 
@@ -202,13 +292,14 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
                                        device=device)
         if device.type == "cuda":
             torch.cuda.synchronize()
-        kernel.flash_attention.launches = 0          # counts of the main path only
+        for fn in kernels.values():                  # counts of this path only
+            fn.launches = 0
         t0 = time.perf_counter()
         metrics = traffic.replay(srv, arrivals)
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = kernel.flash_attention.launches
+        launches = {name: fn.launches for name, fn in kernels.items()}
         fetches_continuous = fetches["n"]
     finally:
         serve_loop._host_fetch = real_fetch
@@ -223,9 +314,11 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
     if not fetches_continuous == syncs == math.ceil(steps / srv.sync_interval):
         raise AssertionError(f"_host_fetch ran {fetches_continuous} times for {steps} decode steps "
                              f"at sync_interval {srv.sync_interval} ({syncs} syncs)")
-    if device.type == "cuda" and launches != srv.prefill_calls * cfg.n_layers:
-        raise AssertionError(f"flash-attention kernel launched {launches} times for "
-                             f"{srv.prefill_calls} prefills x {cfg.n_layers} layers")
+    expected = (_expected_launches(cfg, srv.prefill_calls) if device.type == "cuda"
+                else dict.fromkeys(kernels, 0))     # a CPU tensor never reaches a kernel
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} for {srv.prefill_calls} prefills x "
+                             f"{cfg.n_layers} layers of {cfg.family}; expected {expected}")
 
     # gang at batch 1 is the sequential reference: each request alone, at its
     # own prompt width (a wider gang batch pads every member to its widest)
@@ -247,29 +340,33 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
             "divergences": divergences, "params": params, "arrivals": arrivals}
 
 
-def phase_serve(device, card: str) -> dict:
+def phase_serve(device, card: str, name: str = "olmo-1b", n_requests: int = 16,
+                widths: Optional[list] = None, label: str = "serve") -> dict:
     from repro_torch.configs import get_config
 
-    cfg = get_config("olmo-1b")
-    out = serve_main_path(device, cfg, capacity=2048, max_batch=8, n_requests=16, max_width=1024)
+    cfg = get_config(name)
+    out = serve_main_path(device, cfg, capacity=2048, max_batch=8, n_requests=n_requests,
+                          max_width=1024, widths=widths)
     m = out["metrics"]
-    print(f"serve: olmo-1b full width ({cfg.n_layers} layers, d {cfg.d_model}, "
+    launched = ", ".join(f"{n} {k} launches" for k, n in out["launches"].items() if n)
+    print(f"{label}: {name} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.3f} B params, bf16) on {card}")
-    print(f"serve: {int(m['completed'])} requests, widths {sorted(set(out['widths']))}, "
+    print(f"{label}: {int(m['completed'])} requests, widths {sorted(set(out['widths']))}, "
           f"{int(m['total_tokens'])} tokens, {int(m['decode_steps'])} decode steps, "
-          f"{out['host_fetches']} host fetches, {out['prefill_calls']} prefills, "
-          f"{out['launches']} flash-attention launches")
-    print(f"serve: smoke reading, one cold run: continuous tokens_per_s {m['tokens_per_s']:.2f}, "
-          f"p50_latency_s {m['p50_latency_s']:.4f}, p99_latency_s {m['p99_latency_s']:.4f} "
-          f"({card})")
-    print(f"serve: gang vs continuous identical token streams: "
+          f"{out['host_fetches']} host fetches, {out['prefill_calls']} prefills, {launched} "
+          f"(= prefills x {cfg.n_layers} layers)")
+    print(f"{label}: smoke reading, one cold run: continuous tokens_per_s "
+          f"{m['tokens_per_s']:.2f}, p50_latency_s {m['p50_latency_s']:.4f}, "
+          f"p99_latency_s {m['p99_latency_s']:.4f} ({card})")
+    print(f"{label}: gang vs continuous identical token streams: "
           f"{out['identical_share']:.3f} of requests")
     for d in out["divergences"]:
-        print(f"serve: divergence rid {d['rid']} at step {d['step']}: "
+        print(f"{label}: divergence rid {d['rid']} at step {d['step']}: "
               f"top-2 logit gap at batch 1 {d['top2_gap']:.4g}")
     if out["divergences"]:
-        print("serve: (reported, not a gate: in bf16 a decode step at batch 8 and one at "
+        print(f"{label}: (reported, not a gate: in bf16 a decode step at batch 8 and one at "
               "batch 1 round differently; the f32 serve in the model phase must agree)")
+    out["cfg"] = cfg
     return out
 
 
@@ -282,19 +379,20 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_model(device) -> float:
-    """Reduced OLMo-1B in float32: card (kernel path) vs CPU (plain path),
-    prefill of a non-pow2 prompt (ragged kernel tiles) + 3 decode steps."""
+def phase_model(device, name: str) -> float:
+    """A reduced config in float32: card (kernel path) vs CPU (plain path),
+    prefill at widths 24 (non-pow2: ragged kernel tiles and chunks) and 2
+    (shorter than the SSM's conv history) + 3 decode steps; then served on
+    the card."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = get_config("olmo-1b").reduced()
+    cfg = get_config(name).reduced()
     params = M.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
     rng = np.random.default_rng(5)
-    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 24)))
     fed = torch.from_numpy(rng.integers(2, cfg.vocab_size, (3, 2)))   # decode inputs
 
-    def run(dev):
+    def run(dev, toks):
         p = _to(params, dev)
         logits, caches, pos = M.prefill(p, cfg, toks.to(dev), 32)
         outs = [logits]
@@ -305,14 +403,16 @@ def phase_model(device) -> float:
         return [o.cpu() for o in outs]
 
     worst = 0.0
-    for got, want in zip(run(device), run("cpu")):
-        if got.shape != (2, cfg.padded_vocab) or not torch.isfinite(got).all():
-            raise AssertionError(f"logits of shape {tuple(got.shape)}, "
-                                 f"finite {bool(torch.isfinite(got).all())}")
-        worst = max(worst, (got - want).abs().max().item())
+    for width in (24, 2):
+        toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, width)))
+        for got, want in zip(run(device, toks), run("cpu", toks)):
+            if got.shape != (2, cfg.padded_vocab) or not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: logits of shape {tuple(got.shape)}, "
+                                     f"finite {bool(torch.isfinite(got).all())}")
+            worst = max(worst, (got - want).abs().max().item())
     if worst > 1e-4:
-        raise AssertionError(f"reduced olmo-1b on the card vs the CPU: max abs logit err {worst}")
-    print(f"model: reduced olmo-1b f32 prefill (S=24) + 3 decode steps, card vs CPU: "
+        raise AssertionError(f"reduced {name} on the card vs the CPU: max abs logit err {worst}")
+    print(f"model: reduced {name} f32 prefill (S=24, S=2) + 3 decode steps, card vs CPU: "
           f"max abs logit err {worst:.3g} (tol 1e-4)")
 
     # In f32 the continuous server must reproduce the one-at-a-time streams
@@ -322,9 +422,11 @@ def phase_model(device) -> float:
                           long_max=16)
     ties = [d for d in out["divergences"] if d["top2_gap"] >= 1e-4]
     if ties:
-        raise AssertionError(f"f32 continuous vs sequential streams differ beyond near-ties: {ties}")
-    print(f"model: reduced olmo-1b f32 served on the card: {out['prefill_calls']} prefills, "
-          f"{out['launches']} kernel launches, identical streams "
+        raise AssertionError(f"{name}: f32 continuous vs sequential streams differ beyond "
+                             f"near-ties: {ties}")
+    launched = ", ".join(f"{n} {k}" for k, n in out["launches"].items() if n)
+    print(f"model: reduced {name} f32 served on the card: {out['prefill_calls']} prefills, "
+          f"kernel launches {launched}, identical streams "
           f"{out['identical_share']:.3f} of requests (near-ties {len(out['divergences'])})")
     return worst
 
@@ -341,16 +443,16 @@ def _busy_us(intervals) -> float:
 
 
 def phase_profile(device, serve: dict, card: str, top: int = 8) -> None:
-    """The main path's requests again on warm servers: once plain (warm
+    """A main path's requests again on warm servers: once plain (warm
     tokens/s and p50; the first run paid cuBLAS and allocator set-up), once
     under torch.profiler for the device's busy share and the kernels that
     take its time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.runtime import serve_loop, traffic
 
-    cfg = get_config("olmo-1b")
+    cfg = serve["cfg"]
+    tag = f"profile {cfg.name}"
 
     def serve_once():
         srv = serve_loop.BatchedServer(serve["params"], cfg, capacity=2048, eos_id=-1,
@@ -360,13 +462,13 @@ def phase_profile(device, serve: dict, card: str, top: int = 8) -> None:
         return m
 
     m = serve_once()
-    print(f"profile: warm rerun tokens_per_s {m['tokens_per_s']:.2f}, "
+    print(f"{tag}: warm rerun tokens_per_s {m['tokens_per_s']:.2f}, "
           f"p50_latency_s {m['p50_latency_s']:.4f} ({card})")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         serve_once()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("profile: the profiler recorded no device activity")
+        print(f"{tag}: the profiler recorded no device activity")
         return
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy = _busy_us(spans)
@@ -375,10 +477,10 @@ def phase_profile(device, serve: dict, card: str, top: int = 8) -> None:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
-    print(f"profile: device busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms window "
+    print(f"{tag}: device busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms window "
           f"(idle share {1 - busy / window:.3f}, profiler on), {len(kernels)} device ops")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"profile: {us / total:6.3f} of device time, {us / 1e3:8.2f} ms  {name[:90]}")
+        print(f"{tag}: {us / total:6.3f} of device time, {us / 1e3:8.2f} ms  {name[:90]}")
 
 
 # ------------------------------------------------------------------- timing
@@ -392,6 +494,21 @@ def _time_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int = 20) -> tuple:
+    """Device time of one call of ``fn`` under torch.profiler (the sum of
+    its kernels, host gaps left out) and the kernels a call launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps, len(kernels) // reps
 
 
 def attention_bound_ms(b: int, s: int, h: int, kh: int, d: int, elem_bytes: int,
@@ -422,6 +539,56 @@ def phase_timing(device) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def ssd_bound_ms(b: int, s: int, h: int, p: int, n: int, g: int, elem_bytes: int,
+                 chunk: int, peak_flops: float) -> tuple:
+    """Least time for the SSD forward at these shapes: x, B, C, dt, A, D read
+    once, y and the f32 final state written once, against the chunked
+    algorithm's FLOPs at ``chunk``: the causal half of C·Bᵀ once per group
+    (every head of a group shares it), and per head the causal half of the
+    intra-chunk product and the inter-chunk and state products."""
+    bytes_moved = (elem_bytes * (2 * b * s * h * p + 2 * b * s * g * n)
+                   + 4 * (b * s * h + 2 * h) + 4 * b * h * p * n)
+    flops = 0.0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        pairs = q * (q + 1) / 2
+        flops += 2.0 * b * g * pairs * n + 2.0 * b * h * (pairs * p + 2 * q * n * p)
+    t_bytes, t_flops = bytes_moved / PEAK_BYTES, flops / peak_flops
+    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def phase_timing_ssd(device) -> dict:
+    from repro_torch.kernels.ssd import kernel, ref
+
+    case = (1, 1024, 48, 64, 128, 1)
+    t = _ssd_inputs(case, torch.bfloat16, device, seed=8)
+    n0 = kernel.ssd.launches
+    kernel_ms = _time_ms(lambda: kernel.ssd(*t, chunk=64, return_state=True))
+    plain_ms = _time_ms(lambda: ref.ssd_chunked(*t, chunk=64, return_state=True))
+    kernel.ssd.launches = n0                 # timing launches are not the main path's
+    bound_ms, bound_by = ssd_bound_ms(*case, 2, 64, PEAK_BF16_FLOPS)
+    print(f"timing: ssd bf16 B1 S1024 H48 P64 N128 G1: kernel {kernel_ms:.4f} ms, "
+          f"plain ssd_chunked {plain_ms:.4f} ms, no library call computes SSD, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+
+    # the plain one-token update at the mamba2 serve's decode shape (8 slots):
+    # its f32 state must at least be read and written once a layer.  Events
+    # around eager calls time the host's dispatch too; the profiler's sum of
+    # the device kernels gives the card's own share.
+    x, dt, A, B, C, D = _ssd_inputs((8, 1, 48, 64, 128, 1), torch.bfloat16, device, seed=9)
+    state = torch.randn((8, 48, 64, 128), device=device)
+    step = lambda: ref.ssd_decode_step(state, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], D)
+    decode_ms = _time_ms(step)
+    decode_device_ms, decode_ops = _device_ms(step)
+    decode_bound_ms = 1e3 * 2 * state.numel() * 4 / PEAK_BYTES
+    print(f"timing: ssd_decode_step (plain) bf16 B8 H48 P64 N128, one layer: {decode_ms:.4f} ms "
+          f"by events (host dispatch included), {decode_device_ms:.4f} ms of device kernels "
+          f"({decode_ops} kernels); x 48 layers {48 * decode_device_ms:.4f} ms of device time "
+          f"a decode step; bound (state read + written once) {decode_bound_ms:.4f} ms a layer")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
@@ -431,16 +598,35 @@ def main() -> int:
     card = phase_card()
     phase_build()
     errs = phase_kernels(device)
-    serve = phase_serve(device, card)
-    phase_model(device)
+    ssd_errs = phase_kernels_ssd(device)
+    serves = {
+        "olmo-1b": phase_serve(device, card),
+        "mamba2-780m": phase_serve(device, card, "mamba2-780m", label="serve-ssm"),
+        "hymba-1.5b": phase_serve(device, card, "hymba-1.5b", n_requests=8,
+                                  widths=[2, 8, 32, 64, 128, 256, 512, 1024],
+                                  label="serve-hybrid"),
+    }
+    for name in serves:
+        phase_model(device, name)
     timing = phase_timing(device)
-    phase_profile(device, serve, card)
+    timing_ssd = phase_timing_ssd(device)
+    phase_profile(device, serves["olmo-1b"], card)
+    phase_profile(device, serves["mamba2-780m"], card)
+
+    def launches(kernel_name):
+        by_path = {name: out["launches"][kernel_name] for name, out in serves.items()
+                   if out["launches"][kernel_name]}
+        return sum(by_path.values()), by_path
+
+    fa_n, fa_by = launches("flash_attention")
+    ssd_n, ssd_by = launches("ssd")
     line = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
-        "launches": serve["launches"],
+        "launches": fa_n,
+        "launches_by_path": fa_by,
         "max_abs_err": max(errs.values()),
         "max_abs_err_by_dtype": errs,
         "ms": timing["ms"],
@@ -450,6 +636,24 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "shape": "bf16 B1 S1024 H16 K16 D128 causal",
+        "card": card,
+    }, {
+        "name": "ssd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:74",
+        "launches": ssd_n,
+        "launches_by_path": ssd_by,
+        "max_abs_err": max(ssd_errs["y"].values()),
+        "max_abs_err_by_dtype": ssd_errs["y"],
+        "max_abs_err_state": ssd_errs["state"],
+        "ms": timing_ssd["ms"],
+        "kernel_ms": timing_ssd["ms"],
+        "plain_ms": timing_ssd["plain_ms"],
+        "bound_ms": timing_ssd["bound_ms"],
+        "bound_by": timing_ssd["bound_by"],
+        "library_ms": timing_ssd["library_ms"],
+        "shape": "bf16 B1 S1024 H48 P64 N128 G1",
         "card": card,
     }]}
     print(json.dumps(line))

@@ -37,7 +37,8 @@ def _convert(spec: Any, tree: Any, path: str, device: torch.device,
     if isinstance(spec, P):
         if tuple(np.shape(tree)) != spec.shape:
             raise ValueError(f"{path}: shape {np.shape(tree)} != spec {spec.shape}")
-        return _tensor(tree, device, dtype)
+        # a pinned leaf (the SSM's float32 A_log, dt_bias) keeps its pin
+        return _tensor(tree, device, spec.with_dtype(dtype) if dtype is not None else None)
     if not isinstance(tree, dict) or set(tree) != set(spec):
         got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
         raise ValueError(f"{path or '/'}: keys {got} != spec {sorted(spec)}")
@@ -49,8 +50,9 @@ def params_from_reference(tree: Dict[str, Any], cfg: ModelConfig,
                           dtype: Optional[Any] = None) -> Dict[str, Any]:
     """Reference param tree (numpy) → the port's params on ``device``.
 
-    ``dtype`` casts every leaf (None keeps each array's dtype).  Raises if the
-    tree's keys or leaf shapes differ from :func:`param_specs` of ``cfg``."""
+    ``dtype`` casts every leaf whose spec pins no dtype; a pinned leaf takes
+    its pin (None keeps each array's dtype).  Raises if the tree's keys or
+    leaf shapes differ from :func:`param_specs` of ``cfg``."""
     out = _convert(param_specs(cfg), tree, "", torch.device(device),
                    torch_dtype(dtype) if dtype is not None else None)
     return unstack_blocks(out, cfg.n_layers)

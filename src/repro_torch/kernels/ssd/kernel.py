@@ -1,0 +1,115 @@
+"""Hopper SSD chunked scan: the wrapper of ``csrc/ssd.cu``.
+
+The port of ``repro/kernels/ssd/kernel.py:ssd_pallas``.  The CUDA source
+says what bounds the kernel and how it is laid out; this module checks what
+the kernel takes, allocates y and the final state and launches it on
+PyTorch's current stream through a ``ctypes`` binding of the library that
+:mod:`repro_torch.kernels.build` compiles at first use.
+
+A CPU tensor goes to the plain version, :func:`ref.ssd_chunked`; that is
+the only route to it.  A CUDA tensor launches the kernel or raises.  Unlike
+the Pallas kernel, this one writes the final state it carries (the Pallas
+wrapper recomputes it with the plain version).  ``ssd.launches`` counts
+launches, so a run can show that its prefill went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from .. import build
+from . import ref
+
+__all__ = ["ssd", "CHUNKS", "STATE_DIMS"]
+
+CHUNKS = (64,)                 # compiled chunk lengths
+STATE_DIMS = (16, 128)         # the state sizes of hymba-1.5b and mamba2-780m
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=1)
+def _entry():
+    fn = build.load("ssd").repro_ssd_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    return fn
+
+
+def _p_slice(head_dim: int) -> int:
+    """Head-dim columns per CUDA block (the kernel's P split)."""
+    return 32 if head_dim % 32 == 0 else 16
+
+
+def _check(x, dt, A, B, C, D, chunk: int) -> None:
+    tensors = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
+    if D is not None:
+        tensors["D"] = D
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors.values()):
+        raise ValueError("ssd kernel needs every tensor on one CUDA device; got "
+                         + ", ".join(f"{k} {t.device}" for k, t in tensors.items()))
+    if x.dtype not in _DTYPE_CODE or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"ssd kernel takes float32 or bfloat16 x, B, C of one dtype; got "
+                         f"{x.dtype}, {B.dtype}, {C.dtype}")
+    for k in ("dt", "A", "D"):
+        if k in tensors and tensors[k].dtype != torch.float32:
+            raise ValueError(f"ssd kernel takes float32 {k}; got {tensors[k].dtype}")
+    if x.dim() != 4 or B.dim() != 4 or B.shape != C.shape:
+        raise ValueError(f"expected x (B,S,H,P) and B, C (B,S,G,N); got {tuple(x.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,) or \
+            (D is not None and tuple(D.shape) != (h,)):
+        raise ValueError(f"dt {tuple(dt.shape)}, A {tuple(A.shape)}"
+                         + (f", D {tuple(D.shape)}" if D is not None else "")
+                         + f" do not fit x {tuple(x.shape)}")
+    if B.shape[:2] != x.shape[:2] or g == 0 or h % g:
+        raise ValueError(f"B {tuple(B.shape)} does not fit x {tuple(x.shape)} (H % G must be 0)")
+    if n not in STATE_DIMS:
+        raise ValueError(f"state dim {n} not in {STATE_DIMS}")
+    if p == 0 or p % 16:
+        raise ValueError(f"head_dim {p} is not a multiple of 16")
+    if s == 0 or b == 0:
+        raise ValueError("empty batch or sequence")
+    if chunk not in CHUNKS:
+        raise ValueError(f"chunk={chunk}: compiled chunks are {CHUNKS}")
+    for k, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{k} must be contiguous")
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+        D: Optional[torch.Tensor] = None, *, chunk: int = 64,
+        init_state: Optional[torch.Tensor] = None, return_state: bool = False):
+    """Shapes as :func:`ref.ssd_chunked`; dt, A and D float32.  Returns y
+    (B,S,H,P) in x's dtype, and the final state (B,H,P,N) in float32 if
+    ``return_state``.  The chunk need not divide S: the kernel masks the
+    ragged last chunk.  The kernel starts from a zero state: a non-zero
+    ``init_state`` raises on the card (no serving path passes one)."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunked(x, dt, A, B, C, D, chunk=ref.align_chunk(chunk, x.shape[1]),
+                               init_state=init_state, return_state=return_state)
+    _check(x, dt, A, B, C, D, chunk)
+    if init_state is not None and bool(init_state.any()):
+        raise ValueError("the ssd kernel starts from a zero state; a non-zero init_state "
+                         "is not taken")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    y = torch.empty_like(x)
+    state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+             if return_state else None)
+    err = _entry()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        D.data_ptr() if D is not None else None, y.data_ptr(),
+        state.data_ptr() if state is not None else None, _DTYPE_CODE[x.dtype],
+        b, s, h, p, g, n, chunk, _p_slice(p), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
+    ssd.launches += 1
+    return (y, state) if return_state else y
+
+
+ssd.launches = 0

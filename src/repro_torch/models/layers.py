@@ -78,6 +78,14 @@ def init_leaf(generator: torch.Generator, p: P, dtype: torch.dtype,
             std = 0.02
         x = torch.randn(p.shape, generator=generator, device=device, dtype=torch.float32)
         return (x * std).to(dtype)
+    # the SSM decay parameters stay float32 whatever the model dtype
+    if p.init == "ssm_a":  # A_log: log of uniform [1, 16]
+        u = torch.rand(p.shape, generator=generator, device=device, dtype=torch.float32)
+        return torch.log(1.0 + 15.0 * u)
+    if p.init == "ssm_dt":  # dt bias: softplus-inverse of dt log-uniform in [1e-3, 1e-1]
+        u = torch.rand(p.shape, generator=generator, device=device, dtype=torch.float32)
+        dt = torch.exp(math.log(1e-3) + (math.log(1e-1) - math.log(1e-3)) * u)
+        return dt + torch.log(-torch.expm1(-dt))
     raise ValueError(p.init)
 
 

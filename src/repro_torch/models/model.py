@@ -1,4 +1,4 @@
-"""Top-level model, dense family: param specs, init, forward and serving.
+"""Top-level model: param specs, init, forward and serving (dense, ssm, hybrid).
 
 The port of ``repro/models/model.py``.  Parameters are plain tensors in
 nested dicts: ``embed``, ``ln_f``, ``out`` (unless tied) and ``blocks``, a
@@ -7,9 +7,11 @@ stacked layout (a leading ``layers`` axis on every block leaf), so the spec
 trees of the two packages compare leaf for leaf; :func:`init_params`
 draws that layout and unstacks it.
 
-Serving state is a list of per-layer caches ``{"k", "v"}`` of shape
-(B, C, K, hd), updated in place by :func:`decode_step` and
-:func:`merge_slot`.  ``loss_fn`` comes with training.
+Serving state is a list of per-layer cache dicts: ``{"k", "v"}`` of shape
+(B, C, K, hd) for attention, ``{"ssm": {"conv", "ssd"}}`` for an SSM mixer,
+all three for a hybrid layer.  :func:`decode_step` updates K/V in place and
+replaces each SSM state; :func:`merge_slot` writes one slot in place.
+``loss_fn`` comes with training.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import torch
 from .attention import attn_cache_spec
 from .config import ModelConfig
 from .layers import P, apply_norm, dtype_of, init_leaf, norm_params, torch_dtype
-from .transformer import block_specs, decode_stack, forward_stack, prefill_stack, stack_specs
+from .ssm import ssm_state_spec
+from .transformer import (FAMILIES, block_specs, decode_stack, forward_stack, prefill_stack,
+                          stack_specs)
 
 __all__ = [
     "param_specs", "init_params", "unstack_blocks", "forward", "logits_fn", "cache_specs",
@@ -91,40 +95,60 @@ def logits_fn(params: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor) -> torc
 
 
 # ------------------------------------------------------------------- serving
-def cache_specs(cfg: ModelConfig, batch: int, context: int) -> List[Dict[str, P]]:
-    """Per-layer P-spec list of the decode state for ``context`` tokens."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the port serves the dense family; {cfg.name} is {cfg.family}")
-    return [attn_cache_spec(cfg, batch, context) for _ in range(cfg.n_layers)]
+def _layer_cache_spec(cfg: ModelConfig, batch: int, context: int) -> Dict[str, Any]:
+    layer: Dict[str, Any] = {}
+    if cfg.family in ("dense", "hybrid"):
+        layer.update(attn_cache_spec(cfg, batch, context))
+    if cfg.family in ("ssm", "hybrid"):
+        layer["ssm"] = ssm_state_spec(cfg, batch)
+    return layer
+
+
+def cache_specs(cfg: ModelConfig, batch: int, context: int) -> List[Dict[str, Any]]:
+    """Per-layer P-spec list of the decode state for ``context`` tokens
+    (a fresh dict for each layer)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"the port serves the {'/'.join(FAMILIES)} families; "
+                                  f"{cfg.name} is {cfg.family}")
+    return [_layer_cache_spec(cfg, batch, context) for _ in range(cfg.n_layers)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, context: int, dtype: Optional[Any] = None,
-               device: Union[str, torch.device] = "cuda") -> List[Dict[str, torch.Tensor]]:
+               device: Union[str, torch.device] = "cuda") -> List[Dict[str, Any]]:
+    """Zero decode state; the SSD state stays float32 (its spec's pin)."""
     dtype = torch_dtype(dtype) if dtype is not None else dtype_of(cfg)
     return [_map(lambda p: torch.zeros(p.shape, dtype=p.with_dtype(dtype), device=device), layer)
             for layer in cache_specs(cfg, batch, context)]
 
 
-def cache_batch_axes(cfg: ModelConfig, batch: int, context: int) -> List[Dict[str, int]]:
+def cache_batch_axes(cfg: ModelConfig, batch: int, context: int) -> List[Dict[str, Any]]:
     """Per-leaf index of the batch axis, read off each leaf's logical names
-    (the port holds caches per layer, so it is 0 for every dense leaf)."""
+    (the port holds caches per layer, so it is 0 for every leaf so far)."""
     return [_map(lambda p: p.logical.index("batch"), layer)
             for layer in cache_specs(cfg, batch, context)]
 
 
-def merge_slot(big: List[Dict[str, torch.Tensor]], small: List[Dict[str, torch.Tensor]],
-               slot: int, batch_axes: List[Dict[str, int]]) -> List[Dict[str, torch.Tensor]]:
+def _merge(big: Any, small: Any, slot: int, axes: Any) -> None:
+    if isinstance(axes, dict):
+        for name, ax in axes.items():
+            _merge(big[name], small[name], slot, ax)
+    else:
+        big.select(axes, slot).copy_(small.select(axes, 0))
+
+
+def merge_slot(big: List[Dict[str, Any]], small: List[Dict[str, Any]], slot: int,
+               batch_axes: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
     """Write a batch-1 decode state into row ``slot`` of a batched state, IN
-    PLACE: every other slot's state is untouched, so live sequences keep
-    decoding across the write.  ``slot`` is a Python int (no host sync)."""
+    PLACE (nested dicts included): every other slot's state is untouched, so
+    live sequences keep decoding across the write.  ``slot`` is a Python int
+    (no host sync)."""
     for b_layer, s_layer, ax_layer in zip(big, small, batch_axes):
-        for name, ax in ax_layer.items():
-            b_layer[name].select(ax, slot).copy_(s_layer[name].select(ax, 0))
+        _merge(b_layer, s_layer, slot, ax_layer)
     return big
 
 
 def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
-            cache_capacity: int) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]], int]:
+            cache_capacity: int) -> Tuple[torch.Tensor, List[Dict[str, Any]], int]:
     """Process a prompt; returns (last-token logits (B, V), caches, pos = S)."""
     h, caches = prefill_stack(params["blocks"], _embed(params, tokens), cfg, cache_capacity)
     h = apply_norm(params["ln_f"], h[:, -1:], cfg)
@@ -132,8 +156,8 @@ def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
-                caches: List[Dict[str, torch.Tensor]], pos: Union[int, torch.Tensor],
-                ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+                caches: List[Dict[str, Any]], pos: Union[int, torch.Tensor],
+                ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """One decode step: consumes ``token`` (B,) at position ``pos`` (an int,
     or a (B,) tensor of per-slot positions) and returns (next-token logits
     (B, V), caches).  Rows are independent: each follows its own position."""

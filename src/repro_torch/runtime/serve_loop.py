@@ -1,6 +1,9 @@
 """Serving loop: slot-level continuous batching with amortized host sync.
 
-The port of ``repro/runtime/serve_loop.py``.  Two schedulers over one model:
+The port of ``repro/runtime/serve_loop.py``.  It serves every family whose
+caches :mod:`repro_torch.models.model` builds (dense, ssm, hybrid): the
+scheduler sees a cache only through ``init_cache`` and ``merge_slot``.  Two
+schedulers over one model:
 
   * ``mode="continuous"`` (default) — each of the ``max_batch`` slots
     carries its own device state (current token, position, done flag, cache

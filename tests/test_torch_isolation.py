@@ -48,7 +48,16 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=env, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(_modules()) >= 25
+    assert len(_modules()) >= 29
+
+
+def test_the_ssm_slice_is_covered():
+    """The SSD kernel's modules, the SSM mixer and the CUDA source are among
+    what the checks here walk."""
+    assert {"repro_torch.kernels.ssd.ref", "repro_torch.kernels.ssd.kernel",
+            "repro_torch.kernels.ssd.ops", "repro_torch.models.ssm"} <= set(_modules())
+    assert PORT / "kernels" / "ssd" / "kernel.py" in SOURCES
+    assert (PORT / "csrc" / "ssd.cu").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -101,9 +110,27 @@ def test_chip_smoke_main_path_on_cpu(chip_smoke):
     m = out["metrics"]
     assert m["completed"] == 8 and out["prefill_calls"] == 8
     assert out["host_fetches"] == m["decode_syncs"] > 0
-    assert out["launches"] == 0          # a CPU tensor never reaches the kernel
+    assert out["launches"] == {"flash_attention": 0, "ssd": 0}   # CPU tensors reach no kernel
     assert sorted(set(out["widths"])) == [2, 4, 8, 16, 32]
     assert out["identical_share"] == 1.0 and out["divergences"] == []
+
+
+@pytest.mark.parametrize("name,widths", [("mamba2-780m", None), ("hymba-1.5b", [2, 8, 32])])
+def test_chip_smoke_ssm_paths_on_cpu(chip_smoke, name, widths):
+    """The serve-ssm and serve-hybrid phases' function at reduced size on the
+    CPU, and the launches each family expects on the card."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name).reduced()
+    out = chip_smoke.serve_main_path("cpu", cfg, capacity=64, max_batch=4, n_requests=8,
+                                     max_width=32, long_max=16, widths=widths)
+    assert out["metrics"]["completed"] == 8 and out["prefill_calls"] == 8
+    assert out["host_fetches"] == out["metrics"]["decode_syncs"] > 0
+    assert out["launches"] == {"flash_attention": 0, "ssd": 0}
+    assert out["identical_share"] == 1.0
+    hybrid = cfg.family == "hybrid"
+    assert chip_smoke._expected_launches(cfg, 8) == {
+        "flash_attention": 8 * cfg.n_layers if hybrid else 0, "ssd": 8 * cfg.n_layers}
 
 
 def test_chip_smoke_bound_counts_causal_work(chip_smoke):
@@ -111,3 +138,17 @@ def test_chip_smoke_bound_counts_causal_work(chip_smoke):
     bytes_ms = 1e3 * 2 * 128 * (2 * 1024 * 16 + 2 * 1024 * 16) / chip_smoke.PEAK_BYTES
     flops_ms = 1e3 * 4 * 128 * 16 * 1024 * 1025 / 2 / chip_smoke.PEAK_BF16_FLOPS
     assert ms == pytest.approx(max(bytes_ms, flops_ms)) and by == "bytes"
+
+
+def test_chip_smoke_ssd_bound_counts_bytes_and_chunked_work(chip_smoke):
+    """mamba2's widest prefill (bf16 B1 S1024 H48 P64 N128 G1): 14.9 MB
+    moved, ~1.8 GFLOP of chunked work at chunk 64; bytes bound it."""
+    ms, by = chip_smoke.ssd_bound_ms(1, 1024, 48, 64, 128, 1, 2, 64, chip_smoke.PEAK_BF16_FLOPS)
+    moved = 2 * (2 * 1024 * 48 * 64 + 2 * 1024 * 128) + 4 * (1024 * 48 + 2 * 48) + 4 * 48 * 64 * 128
+    assert moved == pytest.approx(14.9e6, rel=0.01)
+    assert ms == pytest.approx(1e3 * moved / chip_smoke.PEAK_BYTES) and by == "bytes"
+    pairs = 64 * 65 / 2    # C·Bᵀ once for the one group, the rest once per head
+    flops = 16 * 2 * (pairs * 128 + 48 * (pairs * 64 + 2 * 64 * 128 * 64))
+    ms_ops, by_ops = chip_smoke.ssd_bound_ms(1, 1024, 48, 64, 128, 1, 2, 64,
+                                             flops / (2 * ms * 1e-3))
+    assert by_ops == "operations" and ms_ops == pytest.approx(2 * ms)

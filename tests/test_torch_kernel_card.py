@@ -1,6 +1,8 @@
-"""The Hopper flash-attention kernel on the card, against its plain version.
+"""The port's Hopper kernels on the card, against their plain versions:
+flash attention (``csrc/flash_attention.cu``) and the SSD scan
+(``csrc/ssd.cu``).
 
-Every test here needs an NVIDIA GPU and ``nvcc`` (the kernel is built at
+Every test here needs an NVIDIA GPU and ``nvcc`` (the kernels are built at
 first use into ``build/kernels/``): they carry the ``cuda`` marker and skip
 where ``torch.cuda.is_available()`` is false.  The file imports no jax, so it
 runs on a machine that has only the port's dependencies:
@@ -11,7 +13,11 @@ Inputs are drawn with numpy from ``zlib.crc32`` seeds.  Tolerances (absolute
 and relative) are tests/test_kernels.py's ``_grid_tol``: bfloat16 5·2⁻⁸ (the
 plain version rounds the probabilities to bf16 before the PV product, the
 kernel keeps them in f32), float32 170·eps (summation order inside the
-reductions).
+reductions); for the SSD y with the headroom 4 that file gives the scan,
+and 1e-3 on the float32 state.  The SSD's B and C are drawn with variance
+N^-1/2, so C·B has unit variance as after the model's projections: at
+N = 128 and unit B, C the terms of y reach ~10², and any two f32 summation
+orders then differ by more than the f32 tolerance where y cancels to ~0.
 """
 import zlib
 
@@ -20,6 +26,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.kernels.ssd import kernel as ssd_kernel
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SHAPES = [               # (b, sq, sk, h, k, d)
@@ -31,7 +40,9 @@ SHAPES = [               # (b, sq, sk, h, k, d)
     (1, 1024, 1024, 16, 16, 128),   # OLMo-1B prefill at the widest bucket
     (1, 2, 2, 16, 16, 128),
     (1, 100, 228, 8, 8, 64),        # chunked prefill: q after 128 cached keys
+    (1, 1024, 1024, 25, 5, 64),     # hymba-1.5b prefill at the widest bucket (GQA 25->5)
 ]
+HYMBA_WIDTHS = [2 ** k for k in range(1, 11)]   # every pow2 prefill width the server gives
 
 
 @pytest.fixture
@@ -65,6 +76,17 @@ def test_kernel_matches_plain(cuda, dtype, shape, window):
     b, sq, sk, h, k, d = shape
     q, kk, v = _qkv(("card", shape, dtype), b, sq, sk, h, k, d, dtype, cuda)
     kw = dict(causal=True, window=window, q_offset=sk - sq)
+    _close(kernel.flash_attention(q, kk, v, **kw), ref.naive_attention(q, kk, v, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("width", HYMBA_WIDTHS)
+def test_kernel_matches_plain_at_hymba_prefill(cuda, dtype, width):
+    """hymba-1.5b's serving prefills: 25 query heads over 5 KV heads, head
+    dim 64, sliding window 2048 (wider than every prompt)."""
+    q, kk, v = _qkv(("hymba", width, dtype), 1, width, width, 25, 5, 64, dtype, cuda)
+    kw = dict(causal=True, window=2048)
     _close(kernel.flash_attention(q, kk, v, **kw), ref.naive_attention(q, kk, v, **kw), dtype)
 
 
@@ -105,3 +127,107 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
     with pytest.raises(ValueError):
         kernel.flash_attention(q, k, v, **kw)
     assert kernel.flash_attention.launches == before
+
+
+# --------------------------------------------------------------------- SSD
+SSD_SHAPES = [           # (b, s, h, p, n, g)
+    (1, 1024, 48, 64, 128, 1),   # mamba2-780m prefill at the widest bucket
+    (1, 2, 48, 64, 128, 1),      # ... and the narrowest
+    (1, 64, 48, 64, 128, 1),
+    (1, 512, 25, 128, 16, 1),    # hymba-1.5b
+    (2, 200, 8, 32, 128, 2),     # G = 2, non-pow2 S, batch 2
+    (3, 77, 4, 16, 128, 1),      # P 16 (one 16-column slice), ragged chunk
+    (2, 24, 8, 16, 16, 1),       # the reduced configs' shape
+]
+
+
+def _ssd_inputs(tag, b, s, h, p, n, g, dtype, device):
+    rng = np.random.default_rng(zlib.crc32(repr(tag).encode()))
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    A = -np.exp(0.5 * rng.standard_normal(h)).astype(np.float32)
+    B = (rng.standard_normal((b, s, g, n)) / n ** 0.25).astype(np.float32)
+    C = (rng.standard_normal((b, s, g, n)) / n ** 0.25).astype(np.float32)
+    D = (1.0 + 0.1 * rng.standard_normal(h)).astype(np.float32)
+    t = [torch.from_numpy(a).to(device) for a in (x, dt, A, B, C, D)]
+    for i in (0, 3, 4):
+        t[i] = t[i].to(DTYPES[dtype])
+    return t
+
+
+def _ssd_close(got, want, dtype):
+    torch.cuda.synchronize()
+    t = 4.0 * _tol(dtype)
+    (gy, gs), (wy, ws) = got, want
+    assert gy.dtype == wy.dtype and gs.dtype == torch.float32 and gs.shape == ws.shape
+    torch.testing.assert_close(gy.float().cpu(), wy.float().cpu(), rtol=t, atol=t)
+    torch.testing.assert_close(gs.cpu(), ws.cpu(), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("chunk", ssd_kernel.CHUNKS)
+def test_ssd_kernel_matches_plain(cuda, dtype, shape, chunk):
+    """y and the final state against the plain ``ssd_chunked``."""
+    t = _ssd_inputs(("ssd", shape, dtype), *shape, dtype, cuda)
+    got = ssd_kernel.ssd(*t, chunk=chunk, return_state=True)
+    want = ssd_ref.ssd_chunked(*t, chunk=ssd_ref.align_chunk(64, shape[1]), return_state=True)
+    _ssd_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_without_d_or_state(cuda):
+    t = _ssd_inputs("no_d", 1, 100, 4, 32, 128, 1, "float32", cuda)
+    got = ssd_kernel.ssd(*t[:5])
+    want = ssd_ref.ssd_chunked(*t[:5], chunk=50)
+    _ssd_close((got, torch.zeros(1)), (want, torch.zeros(1)), "float32")
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_stays_finite_under_a_steep_decay(cuda):
+    """exp(cs_i - cs_j) overflows above the diagonal when A·dt is large: the
+    kernel never evaluates it there."""
+    t = _ssd_inputs("steep", 1, 128, 4, 32, 16, 1, "float32", cuda)
+    t[2] = torch.full_like(t[2], -60.0)
+    y, s = ssd_kernel.ssd(*t, return_state=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    _ssd_close((y, s), ssd_ref.ssd_chunked(*t, chunk=64, return_state=True), "float32")
+
+
+@pytest.mark.cuda
+def test_ssd_ops_dispatch_launches_the_kernel_and_counts(cuda):
+    t = _ssd_inputs("ssd_ops", 1, 96, 8, 64, 128, 1, "bfloat16", cuda)
+    before = ssd_kernel.ssd.launches
+    got = ssd_ops.ssd(*t, return_state=True)
+    assert ssd_kernel.ssd.launches == before + 1
+    _ssd_close(got, ssd_ref.ssd_chunked(*t, chunk=32, return_state=True), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float16", "state_dim", "head_dim", "strided", "groups",
+                                 "dt_dtype", "chunk", "init_state"])
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
+    x, dt, A, B, C, D = _ssd_inputs("ssd_bad", 1, 16, 4, 32, 16, 2, "bfloat16", cuda)
+    kw = {}
+    if bad == "float16":
+        x, B, C = x.half(), B.half(), C.half()
+    elif bad == "state_dim":
+        B, C = B[..., :8].contiguous(), C[..., :8].contiguous()
+    elif bad == "head_dim":
+        x = x[..., :24].contiguous()
+    elif bad == "strided":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "groups":
+        x, dt, A, D = x[:, :, :3].contiguous(), dt[..., :3].contiguous(), A[:3], D[:3]
+    elif bad == "dt_dtype":
+        dt = dt.to(torch.bfloat16)
+    elif bad == "chunk":
+        kw = {"chunk": 128}
+    else:
+        kw = {"init_state": torch.ones((1, 4, 32, 16), device=cuda)}
+    before = ssd_kernel.ssd.launches
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd(x, dt, A, B, C, D, **kw)
+    assert ssd_kernel.ssd.launches == before
