@@ -7,15 +7,20 @@ Phases, in order; any failure exits non-zero before the result lines:
 
   1. card          — the GPU's name and power limit (nvidia-smi); TF32 off
                      for float32 matmuls and convolutions.
-  2. build         — compile every CUDA kernel of the serving paths from
-                     ``src/repro_torch/csrc`` into ``build/kernels/``, one
-                     ``nvcc`` per source, all at once.
+  2. build         — compile every CUDA kernel of the serving and tuning
+                     paths from ``src/repro_torch/csrc`` into
+                     ``build/kernels/``, one ``nvcc`` per source, all at once.
   3. kernels       — each kernel against its plain PyTorch version on the
-                     card, at the serving paths' shapes and at edge shapes,
+                     card, at the main paths' shapes and at edge shapes,
                      bf16 and float32: flash attention (GQA, window,
-                     q_offset, non-pow2) and the SSD scan (y and the final
-                     state; mamba2's and hymba's prefill widths 2…1024,
-                     G = 2, non-pow2 S).
+                     q_offset, non-pow2; the campaign grid's four shapes
+                     at every compiled tile pair), the SSD scan at both
+                     compiled chunks (y and the final state; mamba2's and
+                     hymba's prefill widths 2…1024, the grid's b2s512h48,
+                     G = 2, non-pow2 S) and RMSNorm (tests/test_kernels.py's
+                     shapes, the served widths 1536 and 1600 at 8…16384
+                     rows, with and without the residual, every compiled
+                     instance at two ragged shapes and at the grid's two).
   4. serve         — full-width OLMo-1B (random bf16 weights from a seed)
                      served by the continuous ``BatchedServer`` over the
                      seeded heavy-tail mix with one prompt per pow2 prefill
@@ -41,6 +46,13 @@ Phases, in order; any failure exits non-zero before the result lines:
   9. profile       — the OLMo-1B and mamba2-780m serves again, warm: tokens/s
                      and p50, then under torch.profiler the device's busy
                      share and top kernels.
+ 10. campaign      — the MLOS loop on the card: the full ``kernels`` grid
+                     (8 cells over the three kernels, bo, budget 6) through
+                     ``repro_torch.launch.campaign`` into a temporary store
+                     and journal; every cell done, every promoted entry
+                     filed under this card, each kernel launched, a rerun
+                     under the same id resumes with no measurement, and the
+                     ops resolve and launch what was promoted.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The port imports no jax and nothing of
@@ -65,6 +77,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak, FLOP/s
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3, bytes/s
 TOL = {torch.bfloat16: 5.0 * 2.0 ** -8,                      # inputs rounded, f32 accumulation
        torch.float32: 170.0 * float(np.finfo(np.float32).eps)}  # rounding inside the reductions
+PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s
 SSD_HEADROOM = 4.0           # tests/test_kernels.py: the scan's chunk hand-offs
 SSD_STATE_TOL = 1e-3         # float32 final state, absolute and relative
 SEED = 17
@@ -80,12 +93,23 @@ ATTN_CASES = [
     (2, 77, 77, 4, 2, 32, 0, 0),          # non-pow2, ragged tiles
     (1, 40, 40, 4, 4, 16, 0, 0),
 ]
+# The `kernels` campaign grid's attention shapes (OLMo-1B heads, causal):
+# every compiled (block_q, block_kv) pair the grid times and may promote
+ATTN_GRID_CASES = [(b, s, s, 16, 16, 128, 0, 0) for b, s in ((1, 128), (2, 256), (2, 512),
+                                                           (4, 1024))]
 # (batch, seq, heads, head_dim, state, groups)
+# RMSNorm shapes (..., d): tests/test_kernels.py's spot checks and RMS_GRID,
+# then the served norm widths (mamba2-780m 1536, hymba-1.5b 1600)
+RMS_CASES = [(8, 128), (2, 16, 256), (3, 96), (6, 160), (2, 5, 48), (7, 1024),
+             *((rows, d) for d in (1536, 1600) for rows in (8, 1024, 16384))]
+RMS_RAGGED = [(37, 1536), (11, 100)]     # every compiled instance: a ragged last block; scalar path
+RMS_GRID_CASES = [(2048, 1536), (16384, 1536)]   # every instance at the campaign grid's shapes
 SSD_CASES = [
     # mamba2-780m and hymba-1.5b prefill shapes: every pow2 prompt width
     *((1, w, 48, 64, 128, 1) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
     *((1, w, 25, 128, 16, 1) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
     (2, 256, 8, 64, 128, 2),             # G = 2 grouping, batch 2
+    (2, 512, 48, 64, 128, 1),            # the campaign grid's b2s512h48
     (1, 300, 48, 64, 128, 1),            # non-pow2 S: a ragged last chunk
     (3, 77, 4, 16, 16, 1),               # P 16, ragged
 ]
@@ -101,14 +125,16 @@ def _import_port():
 def _kernels():
     """The wrappers whose ``launches`` count the main paths' kernel launches."""
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.ssd import kernel as ssd
-    return {"flash_attention": fa.flash_attention, "ssd": ssd.ssd}
+    return {"flash_attention": fa.flash_attention, "ssd": ssd.ssd, "rmsnorm": rms.rmsnorm}
 
 
 def _expected_launches(cfg, prefills: int) -> dict:
-    """One launch per layer per prefill of each kernel the family runs."""
+    """One launch per layer per prefill of each kernel the family runs (the
+    models normalize inline: RMSNorm's kernel is on the tuning path only)."""
     uses = {"flash_attention": cfg.family in ("dense", "hybrid"),
-            "ssd": cfg.family in ("ssm", "hybrid")}
+            "ssd": cfg.family in ("ssm", "hybrid"), "rmsnorm": False}
     return {k: prefills * cfg.n_layers if used else 0 for k, used in uses.items()}
 
 
@@ -131,7 +157,7 @@ def phase_build() -> None:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    libs = build.build(["flash_attention", "ssd"])
+    libs = build.build(["flash_attention", "ssd", "rmsnorm"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_name(path.name + ".log")
@@ -148,26 +174,33 @@ def _qkv(case, dtype, device, seed):
 
 
 def phase_kernels(device) -> dict:
-    """Kernel vs plain on the card; returns the max abs error per dtype."""
+    """Kernel vs plain on the card: the edge and serve shapes at the default
+    tiles, the campaign grid's shapes at every compiled tile pair; returns
+    the max abs error per dtype."""
     kernel, ref = _import_port()
+    cases = [(case, 64, 64) for case in ATTN_CASES] + [
+        (case, bq, bk) for case in ATTN_GRID_CASES for bq in kernel.TILES for bk in kernel.TILES]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         worst = 0.0
-        for i, case in enumerate(ATTN_CASES):
+        for i, (case, bq, bk) in enumerate(cases):
             q, k, v = _qkv(case, dtype, device, seed=1000 + i)
             window, q_offset = case[6], case[7]
-            got = kernel.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+            got = kernel.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset,
+                                         block_q=bq, block_kv=bk)
             want = ref.naive_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
             tol = TOL[dtype]
             bad = err > tol + tol * want.float().abs()
             if not torch.isfinite(got).all() or bad.any():
-                raise AssertionError(f"kernel disagrees with naive_attention at {case} {dtype}: "
-                                     f"max abs err {err.max().item():.3g}, tol {tol:.3g}")
+                raise AssertionError(f"kernel (tiles {bq}/{bk}) disagrees with naive_attention at "
+                                     f"{case} {dtype}: max abs err {err.max().item():.3g}, "
+                                     f"tol {tol:.3g}")
             worst = max(worst, err.max().item())
         errs[str(dtype).replace("torch.", "")] = worst
-        print(f"kernels: flash_attention vs naive_attention, {dtype}: {len(ATTN_CASES)} cases, "
+        print(f"kernels: flash_attention vs naive_attention, {dtype}: {len(ATTN_CASES)} cases at "
+              f"tiles 64/64 + {len(ATTN_GRID_CASES)} grid shapes x tile pairs {kernel.TILES}^2, "
               f"max abs err {worst:.3g} (tol {TOL[dtype]:.3g} abs + rel)")
     return errs
 
@@ -189,7 +222,8 @@ def _ssd_inputs(case, dtype, device, seed):
 
 def phase_kernels_ssd(device) -> dict:
     """SSD kernel vs the plain ``ssd_chunked`` on the card, y and the final
-    state; returns the max abs errors of y per dtype and of the state."""
+    state, at every compiled chunk; returns the max abs errors of y per
+    dtype and of the state."""
     from repro_torch.kernels.ssd import kernel, ref
 
     errs, state_worst = {}, 0.0
@@ -198,25 +232,78 @@ def phase_kernels_ssd(device) -> dict:
         tol = TOL[dtype] * SSD_HEADROOM
         for i, case in enumerate(SSD_CASES):
             t = _ssd_inputs(case, dtype, device, seed=2000 + i)
-            y, st = kernel.ssd(*t, return_state=True)
             wy, ws = ref.ssd_chunked(*t, chunk=ref.align_chunk(64, case[1]), return_state=True)
-            torch.cuda.synchronize()
-            err = (y.float() - wy.float()).abs()
-            serr = (st - ws).abs()
-            if (not torch.isfinite(y).all() or not torch.isfinite(st).all()
-                    or (err > tol + tol * wy.float().abs()).any()
-                    or (serr > SSD_STATE_TOL + SSD_STATE_TOL * ws.abs()).any()):
-                raise AssertionError(f"ssd kernel disagrees with ssd_chunked at {case} {dtype}: "
-                                     f"max abs err y {err.max().item():.3g} (tol {tol:.3g}), "
-                                     f"state {serr.max().item():.3g} (tol {SSD_STATE_TOL})")
-            worst = max(worst, err.max().item())
-            state_worst = max(state_worst, serr.max().item())
+            for chunk in kernel.CHUNKS:
+                y, st = kernel.ssd(*t, chunk=chunk, return_state=True)
+                torch.cuda.synchronize()
+                err = (y.float() - wy.float()).abs()
+                serr = (st - ws).abs()
+                if (not torch.isfinite(y).all() or not torch.isfinite(st).all()
+                        or (err > tol + tol * wy.float().abs()).any()
+                        or (serr > SSD_STATE_TOL + SSD_STATE_TOL * ws.abs()).any()):
+                    raise AssertionError(
+                        f"ssd kernel (chunk {chunk}) disagrees with ssd_chunked at {case} "
+                        f"{dtype}: max abs err y {err.max().item():.3g} (tol {tol:.3g}), "
+                        f"state {serr.max().item():.3g} (tol {SSD_STATE_TOL})")
+                worst = max(worst, err.max().item())
+                state_worst = max(state_worst, serr.max().item())
         errs[str(dtype).replace("torch.", "")] = worst
-        print(f"kernels: ssd vs ssd_chunked, {dtype}: {len(SSD_CASES)} cases, max abs err y "
-              f"{worst:.3g} (tol {tol:.3g} abs + rel)")
+        print(f"kernels: ssd vs ssd_chunked, {dtype}: {len(SSD_CASES)} cases x chunks "
+              f"{kernel.CHUNKS}, max abs err y {worst:.3g} (tol {tol:.3g} abs + rel)")
     print(f"kernels: ssd final state (f32), max abs err {state_worst:.3g} "
           f"(tol {SSD_STATE_TOL} abs + rel)")
     return {"y": errs, "state": state_worst}
+
+
+def _rms_inputs(shape, dtype, device, seed, residual=True):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device).to(dtype)
+    r = torch.randn(shape, generator=gen, device=device).to(dtype) if residual else None
+    return x, r, torch.linspace(0.5, 1.5, shape[-1], device=device)
+
+
+def _rms_check(got, want, dtype, what) -> float:
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    tol = TOL[dtype]
+    if got.dtype != want.dtype or not torch.isfinite(got).all() or \
+            (err > tol + tol * want.float().abs()).any():
+        raise AssertionError(f"rmsnorm kernel disagrees with ref.rmsnorm at {what}: max abs err "
+                             f"{err.max().item():.3g}, tol {tol:.3g}")
+    return err.max().item()
+
+
+def phase_kernels_rmsnorm(device) -> dict:
+    """RMSNorm kernel vs the plain ``ref.rmsnorm`` on the card; returns the
+    max abs error per dtype."""
+    from repro_torch.kernels.rmsnorm import kernel, ref
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst, n = 0.0, 0
+        for i, shape in enumerate(RMS_CASES):
+            for residual in (False, True):
+                x, r, scale = _rms_inputs(shape, dtype, device, 3000 + i, residual)
+                worst = max(worst, _rms_check(kernel.rmsnorm(x, scale, r), ref.rmsnorm(x, scale, r),
+                                              dtype, f"{shape} {dtype} residual={residual}"))
+                n += 1
+        # ragged shapes with the residual; the grid's shapes without, as it runs
+        instance_cases = [(s, True) for s in RMS_RAGGED] + [(s, False) for s in RMS_GRID_CASES]
+        for i, (shape, residual) in enumerate(instance_cases):
+            x, r, scale = _rms_inputs(shape, dtype, device, 3100 + i, residual)
+            want = ref.rmsnorm(x, scale, r)
+            for rows in kernel.BLOCK_ROWS:
+                for threads in kernel.ROW_THREADS:
+                    got = kernel.rmsnorm(x, scale, r, block_rows=rows, row_threads=threads)
+                    worst = max(worst, _rms_check(got, want, dtype, f"{shape} {dtype} "
+                                                  f"residual={residual} block_rows {rows} "
+                                                  f"row_threads {threads}"))
+                    n += 1
+        errs[str(dtype).replace("torch.", "")] = worst
+        print(f"kernels: rmsnorm vs ref.rmsnorm, {dtype}: {n} cases (every block_rows x "
+              f"row_threads instance at {RMS_RAGGED + RMS_GRID_CASES}), max abs err {worst:.3g} "
+              f"(tol {TOL[dtype]:.3g} abs + rel)")
+    return errs
 
 
 # -------------------------------------------------------------------- serve
@@ -589,6 +676,177 @@ def phase_timing_ssd(device) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def rmsnorm_bound_ms(rows: int, d: int, elem_bytes: int, scale_bytes: int,
+                     residual: bool) -> tuple:
+    """Least time for RMSNorm at these shapes: x (and the residual) read
+    once, the scale read once, y written once, against 4 FLOPs per element
+    (square and add, the two multiplies; 5 with the residual's add) at the
+    card's float32 rate."""
+    n = rows * d
+    bytes_moved = elem_bytes * n * (3 if residual else 2) + scale_bytes * d
+    flops = (5.0 if residual else 4.0) * n
+    t_bytes, t_flops = bytes_moved / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def phase_timing_rmsnorm(device) -> dict:
+    """The kernel (default launch: 1 row a block, 32 threads a row), the
+    plain version and ``torch.nn.functional.rms_norm`` (a yardstick the port
+    never calls) at the grid's r16384d1536 in bf16, with a bf16 scale; CUDA
+    events over 20 launches, as the other kernels."""
+    from repro_torch.kernels.rmsnorm import kernel, ref
+
+    rows, d = 16384, 1536
+    x, r, scale = _rms_inputs((rows, d), torch.bfloat16, device, 11)
+    scale = scale.to(torch.bfloat16)
+    n0 = kernel.rmsnorm.launches
+    out = {}
+    for residual in (False, True):
+        rr = r if residual else None
+        k_ms = _time_ms(lambda: kernel.rmsnorm(x, scale, rr))
+        p_ms = _time_ms(lambda: ref.rmsnorm(x, scale, rr))
+        lib_ms = None if residual else _time_ms(
+            lambda: torch.nn.functional.rms_norm(x, (d,), scale, eps=1e-5))
+        b_ms, b_by = rmsnorm_bound_ms(rows, d, 2, 2, residual)
+        tag = "rmsnorm_res" if residual else "rmsnorm"
+        out[tag] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                    "bound_by": b_by}
+        print(f"timing: {tag} bf16 r{rows}d{d}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              + (f"F.rms_norm {lib_ms:.4f} ms, " if lib_ms is not None else
+                 "no single library call normalizes x + residual, ")
+              + f"bound {b_ms:.4f} ms ({b_by})")
+    kernel.rmsnorm.launches = n0             # timing launches are not the main path's
+    return out
+
+
+# ----------------------------------------------------------------- campaign
+def _op_check(component: str, workload: str, device) -> tuple:
+    """Call the component's op at the workload's shape with no settings
+    given, so it resolves what the store holds; returns (launches added,
+    max abs err against the plain version)."""
+    from repro_torch.core.configstore import _sig_fields
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    f = _sig_fields(workload)
+    if component == "torch_flash_attention":
+        q, k, v = _qkv((f["b"], f["q"], f["k"], 16, 16, f["d"], 0, 0), torch.bfloat16, device, 41)
+        wrapper = fa_kernel.flash_attention
+        n0 = wrapper.launches
+        got = fa_ops.flash_attention(q, k, v, causal=True)
+        want, tol = fa_ref.naive_attention(q, k, v, causal=True), TOL[torch.bfloat16]
+    elif component == "torch_rmsnorm_kernel":
+        x, _, scale = _rms_inputs((f["r"], f["d"]), torch.bfloat16, device, 42, residual=False)
+        wrapper = rms_kernel.rmsnorm
+        n0 = wrapper.launches
+        got = rms_ops.rmsnorm(x, scale)
+        want, tol = rms_ref.rmsnorm(x, scale), TOL[torch.bfloat16]
+    else:
+        t = _ssd_inputs((f["b"], f["s"], f["h"], 64, 128, 1), torch.bfloat16, device, 43)[:5]
+        wrapper = ssd_kernel.ssd
+        n0 = wrapper.launches
+        got = ssd_ops.ssd(*t)
+        want = ssd_ref.ssd_chunked(*t, chunk=ssd_ref.align_chunk(64, f["s"]))
+        tol = TOL[torch.bfloat16] * SSD_HEADROOM
+    torch.cuda.synchronize()
+    added = wrapper.launches - n0
+    err = (got.float() - want.float()).abs()
+    if not torch.isfinite(got).all() or (err > tol + tol * want.float().abs()).any():
+        raise AssertionError(f"{component}@{workload}: the op at the promoted settings disagrees "
+                             f"with the plain version: max abs err {err.max().item():.3g}, "
+                             f"tol {tol:.3g}")
+    return added, err.max().item()
+
+
+def phase_campaign(device, card: str) -> dict:
+    """The full ``kernels`` grid on the card into a temporary store and
+    journal (the default store for this phase only); returns the launches
+    per kernel during the grid's run."""
+    import tempfile
+
+    from repro_torch.core import configstore
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import campaign as launch
+
+    kernels = _kernels()
+    singletons = {"torch_flash_attention": fa_ops.attention_settings,
+                  "torch_rmsnorm_kernel": rms_ops.rmsnorm_settings,
+                  "torch_ssd_kernel": ssd_ops.ssd_settings}
+    hw, sw = configstore.hardware_fingerprint(), configstore.sw_fingerprint()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_campaign_") as tmp:
+        store = configstore.ConfigStore(Path(tmp) / "store")
+        journal_root = Path(tmp) / "journal"
+        old = configstore.set_default_store(store)
+        try:
+            torch.cuda.synchronize()
+            for fn in kernels.values():              # counts of this path only
+                fn.launches = 0
+            t0 = time.perf_counter()
+            camp, results = launch.run_grid("kernels", budget=6, optimizer="bo", seed=0,
+                                            device=device, campaign_id="chip-smoke",
+                                            store=store, journal_root=journal_root)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in kernels.items()}
+            print(f"campaign: kernels grid, {len(results)} cells, bo budget 6, "
+                  f"{camp.measure_calls} measurements, wall {wall:.1f} s, on {card}")
+            for _, r in sorted(results.items()):
+                print("campaign: " + launch.describe(r))
+
+            cell_ids = {c.cell_id for c in camp.cells}
+            if len(cell_ids) != 8 or set(camp.journal.completed()) != cell_ids:
+                raise AssertionError(f"cells without a cell_done row: "
+                                     f"{sorted(cell_ids - set(camp.journal.completed()))}")
+            for comp in singletons:
+                path = store.root / f"{comp}.json"
+                entries = json.loads(path.read_text())["entries"] if path.exists() else []
+                for e in entries:
+                    if e["context"]["hardware"] != hw or e["context"]["sw"] != sw:
+                        raise AssertionError(f"promoted entry filed under {e['context']}, "
+                                             f"not {hw} / {sw}")
+            if not all(launches.values()):
+                raise AssertionError(f"a kernel was not launched by the grid: {launches}")
+            print(f"campaign: launches during the grid {launches}; entries filed under {hw}, {sw}")
+
+            again, res2 = launch.run_grid("kernels", budget=6, optimizer="bo", seed=0,
+                                          device=device, campaign_id="chip-smoke",
+                                          store=store, journal_root=journal_root)
+            if again.measure_calls != 0 or not all(r.resumed for r in res2.values()):
+                raise AssertionError(f"resume re-measured: {again.measure_calls} calls")
+            print(f"campaign: rerun under the same id resumed {len(res2)} cells, "
+                  f"{again.measure_calls} measurements")
+
+            for comp in singletons:
+                if not any(r.promoted for r in results.values() if r.cell.component == comp):
+                    raise AssertionError(f"{comp}: no cell promoted")
+            for _, r in sorted(results.items()):
+                if not r.promoted:
+                    continue
+                resolved = singletons[r.cell.component].settings_for(r.cell.workload)
+                if resolved != r.best_config:
+                    raise AssertionError(f"{r.cell.cell_id}: settings_for gives {resolved}, "
+                                         f"promoted {r.best_config}")
+                added, err = _op_check(r.cell.component, r.cell.workload, device)
+                if added != 1:
+                    raise AssertionError(f"{r.cell.cell_id}: the op launched its kernel "
+                                         f"{added} times, not once")
+                print(f"campaign: {r.cell.cell_id} resolves {resolved}; the op launched its "
+                      f"kernel once, max abs err vs plain {err:.3g}")
+        finally:
+            configstore.set_default_store(old)
+    print(f"campaign: phase wall {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
@@ -599,6 +857,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernels(device)
     ssd_errs = phase_kernels_ssd(device)
+    rms_errs = phase_kernels_rmsnorm(device)
     serves = {
         "olmo-1b": phase_serve(device, card),
         "mamba2-780m": phase_serve(device, card, "mamba2-780m", label="serve-ssm"),
@@ -610,16 +869,20 @@ def main() -> int:
         phase_model(device, name)
     timing = phase_timing(device)
     timing_ssd = phase_timing_ssd(device)
+    timing_rms = phase_timing_rmsnorm(device)
+    campaign = phase_campaign(device, card)
     phase_profile(device, serves["olmo-1b"], card)
     phase_profile(device, serves["mamba2-780m"], card)
 
     def launches(kernel_name):
         by_path = {name: out["launches"][kernel_name] for name, out in serves.items()
                    if out["launches"][kernel_name]}
+        by_path["campaign"] = campaign["launches"][kernel_name]
         return sum(by_path.values()), by_path
 
     fa_n, fa_by = launches("flash_attention")
     ssd_n, ssd_by = launches("ssd")
+    rms_n, rms_by = launches("rmsnorm")
     line = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -654,6 +917,24 @@ def main() -> int:
         "bound_by": timing_ssd["bound_by"],
         "library_ms": timing_ssd["library_ms"],
         "shape": "bf16 B1 S1024 H48 P64 N128 G1",
+        "card": card,
+    }, {
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:33",
+        "launches": rms_n,
+        "launches_by_path": rms_by,
+        "max_abs_err": max(rms_errs.values()),
+        "max_abs_err_by_dtype": rms_errs,
+        "ms": timing_rms["rmsnorm"]["ms"],
+        "kernel_ms": timing_rms["rmsnorm"]["ms"],
+        "plain_ms": timing_rms["rmsnorm"]["plain_ms"],
+        "bound_ms": timing_rms["rmsnorm"]["bound_ms"],
+        "bound_by": timing_rms["rmsnorm"]["bound_by"],
+        "library_ms": timing_rms["rmsnorm"]["library_ms"],
+        "residual": timing_rms["rmsnorm_res"],
+        "shape": "bf16 r16384 d1536, bf16 scale",
         "card": card,
     }]}
     print(json.dumps(line))

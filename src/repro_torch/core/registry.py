@@ -8,7 +8,8 @@ class gains:
   * ``self.settings`` — a flat dict of tunable values (declared defaults
     merged with constructor overrides), swapped by ``apply_settings``;
   * ``self.settings_for(workload)`` — the values for one workload context,
-    resolved through :func:`repro_torch.core.configstore.resolve_settings`.
+    resolved through :func:`repro_torch.core.configstore.resolve_settings`:
+    override → keys set on this instance → stored entry → declared defaults.
 
 The port keeps its own registry: its components carry ``torch_`` names, so
 a process that imports the reference package as well (the parity tests)
@@ -94,14 +95,17 @@ def tunable_component(
 
         def settings_for(self, workload: str = "*") -> Dict[str, Any]:
             """Context-resolved settings for one workload signature:
-            in-process override → keys set on this instance → declared
-            defaults.  Override values are domain-checked, so a stale or
-            mistyped override raises here rather than inside a kernel."""
+            in-process override → keys set on this instance → stored entry
+            → declared defaults.  A stored entry's unknown keys and
+            out-of-domain values drop; override values are domain-checked,
+            so a stale or mistyped override raises here rather than inside
+            a kernel.  Resolution is cached per (store generation, context):
+            a call reads no file."""
             from .configstore import resolve_settings
 
             explicit = {k: self.settings[k] for k in self._explicit_settings}
             return space.validate(resolve_settings(comp_name, workload, defaults=space.defaults(),
-                                                   explicit=explicit))
+                                                   explicit=explicit, space=space))
 
         cls.settings_for = settings_for
         return cls

@@ -40,9 +40,11 @@
 // the state update, each as a register tile per thread over shared memory.
 // Chunks need not divide S: rows past the end load as zeros (dt = 0 keeps
 // the cumsum flat, B = x = 0 add nothing to the state) and are not stored.
-// At Q 64, N 128, PS 32 the block takes 116 KB of dynamic shared memory.
-// Compiled: chunk 64, N 16 (hymba-1.5b) and 128 (mamba2-780m), PS 32 and 16
-// (head dims that are multiples of 32, and of 16 only), f32 and bf16.
+// At Q 64, N 128, PS 32 the block takes 116 KB of dynamic shared memory,
+// at Q 32 61 KB.  The result does not depend on the chunk beyond f32
+// summation order.  Compiled: chunk 32 and 64, N 16 (hymba-1.5b) and 128
+// (mamba2-780m), PS 32 and 16 (head dims that are multiples of 32, and of
+// 16 only), f32 and bf16.
 //
 // Thread layout: 256 threads = 16 row groups (ty) x 16 lanes (tx).
 //   scores: rows ty*Q/16 .. +Q/16-1, columns tx + 16c  (Q/16 x Q/16 each)
@@ -316,6 +318,10 @@ cudaError_t dispatch(int chunk, int p_slice, int n, const void* x, const float* 
     return dispatch_n<T, 64, 32>(n, x, dt, A, Bm, Cm, D, y, state, batch, seq, n_heads, head_dim, n_groups, s);
   if (chunk == 64 && p_slice == 16)
     return dispatch_n<T, 64, 16>(n, x, dt, A, Bm, Cm, D, y, state, batch, seq, n_heads, head_dim, n_groups, s);
+  if (chunk == 32 && p_slice == 32)
+    return dispatch_n<T, 32, 32>(n, x, dt, A, Bm, Cm, D, y, state, batch, seq, n_heads, head_dim, n_groups, s);
+  if (chunk == 32 && p_slice == 16)
+    return dispatch_n<T, 32, 16>(n, x, dt, A, Bm, Cm, D, y, state, batch, seq, n_heads, head_dim, n_groups, s);
   return cudaErrorInvalidValue;
 }
 

@@ -25,7 +25,7 @@ from . import ref
 
 __all__ = ["ssd", "CHUNKS", "STATE_DIMS"]
 
-CHUNKS = (64,)                 # compiled chunk lengths
+CHUNKS = (32, 64)              # compiled chunk lengths
 STATE_DIMS = (16, 128)         # the state sizes of hymba-1.5b and mamba2-780m
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

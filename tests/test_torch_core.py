@@ -31,8 +31,8 @@ def test_fingerprints_name_torch_and_this_device():
     assert sw.startswith(f"torch-{torch.__version__}/cuda-") and "/py-3." in sw
     assert hw != jstore.hardware_fingerprint() and sw != jstore.sw_fingerprint()
     ctx = configstore.context_for("torch_flash_attention", "b1q512k512d128")
-    assert ctx == {"component": "torch_flash_attention", "workload": "b1q512k512d128",
-                   "hardware": hw, "sw": sw}
+    assert ctx.to_dict() == {"component": "torch_flash_attention", "workload": "b1q512k512d128",
+                             "hardware": hw, "sw": sw}
 
 
 def test_resolution_order_override_then_explicit_then_defaults():

@@ -60,6 +60,18 @@ def test_the_ssm_slice_is_covered():
     assert (PORT / "csrc" / "ssd.cu").exists()
 
 
+def test_the_tuning_slice_is_covered():
+    """The MLOS loop's modules, the RMSNorm kernel's and its CUDA source are
+    among what the checks here walk."""
+    assert {"repro_torch.core.stats", "repro_torch.core.agent", "repro_torch.core.campaign",
+            "repro_torch.core.codegen", "repro_torch.core.smartcomponents",
+            "repro_torch.core.optimizers.bayesopt", "repro_torch.launch.campaign",
+            "repro_torch.launch.microbench", "repro_torch.launch.tuning",
+            "repro_torch.kernels.rmsnorm.ref", "repro_torch.kernels.rmsnorm.kernel",
+            "repro_torch.kernels.rmsnorm.ops"} <= set(_modules())
+    assert (PORT / "csrc" / "rmsnorm.cu").exists()
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_nothing_of_jax_or_repro(path):
     roots = {name.split(".")[0] for name in _imported(ast.parse(path.read_text()))}
@@ -67,9 +79,11 @@ def test_source_imports_nothing_of_jax_or_repro(path):
 
 
 def test_port_calls_no_library_attention():
+    """Nor a library norm: RMSNorm is the port's own kernel."""
     for path in PORT.rglob("*.py"):
         text = path.read_text()
-        for banned in ("scaled_dot_product_attention", "torch.compile", "cpp_extension"):
+        for banned in ("scaled_dot_product_attention", "torch.compile", "cpp_extension",
+                       "rms_norm", "layer_norm"):
             assert banned not in text, f"{path.relative_to(ROOT)} uses {banned}"
 
 
@@ -110,7 +124,7 @@ def test_chip_smoke_main_path_on_cpu(chip_smoke):
     m = out["metrics"]
     assert m["completed"] == 8 and out["prefill_calls"] == 8
     assert out["host_fetches"] == m["decode_syncs"] > 0
-    assert out["launches"] == {"flash_attention": 0, "ssd": 0}   # CPU tensors reach no kernel
+    assert out["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}   # CPU: no kernel
     assert sorted(set(out["widths"])) == [2, 4, 8, 16, 32]
     assert out["identical_share"] == 1.0 and out["divergences"] == []
 
@@ -126,11 +140,12 @@ def test_chip_smoke_ssm_paths_on_cpu(chip_smoke, name, widths):
                                      max_width=32, long_max=16, widths=widths)
     assert out["metrics"]["completed"] == 8 and out["prefill_calls"] == 8
     assert out["host_fetches"] == out["metrics"]["decode_syncs"] > 0
-    assert out["launches"] == {"flash_attention": 0, "ssd": 0}
+    assert out["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}
     assert out["identical_share"] == 1.0
     hybrid = cfg.family == "hybrid"
     assert chip_smoke._expected_launches(cfg, 8) == {
-        "flash_attention": 8 * cfg.n_layers if hybrid else 0, "ssd": 8 * cfg.n_layers}
+        "flash_attention": 8 * cfg.n_layers if hybrid else 0, "ssd": 8 * cfg.n_layers,
+        "rmsnorm": 0}
 
 
 def test_chip_smoke_bound_counts_causal_work(chip_smoke):
@@ -152,3 +167,13 @@ def test_chip_smoke_ssd_bound_counts_bytes_and_chunked_work(chip_smoke):
     ms_ops, by_ops = chip_smoke.ssd_bound_ms(1, 1024, 48, 64, 128, 1, 2, 64,
                                              flops / (2 * ms * 1e-3))
     assert by_ops == "operations" and ms_ops == pytest.approx(2 * ms)
+
+
+def test_chip_smoke_rmsnorm_bound_counts_bytes(chip_smoke):
+    """The kernels grid's r16384d1536 in bf16: 50.3 MB read and 50.3 MB
+    written (75.5 MB read with the residual) bound it at 0.030 ms (0.045)."""
+    for residual, reads, want in ((False, 1, 0.030), (True, 2, 0.045)):
+        ms, by = chip_smoke.rmsnorm_bound_ms(16384, 1536, 2, 2, residual)
+        moved = 2 * 16384 * 1536 * (reads + 1) + 2 * 1536
+        assert ms == pytest.approx(1e3 * moved / chip_smoke.PEAK_BYTES) and by == "bytes"
+        assert ms == pytest.approx(want, rel=0.01)

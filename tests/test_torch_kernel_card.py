@@ -1,6 +1,7 @@
 """The port's Hopper kernels on the card, against their plain versions:
-flash attention (``csrc/flash_attention.cu``) and the SSD scan
-(``csrc/ssd.cu``).
+flash attention (``csrc/flash_attention.cu``), the SSD scan
+(``csrc/ssd.cu``, both compiled chunks) and row RMSNorm
+(``csrc/rmsnorm.cu``).
 
 Every test here needs an NVIDIA GPU and ``nvcc`` (the kernels are built at
 first use into ``build/kernels/``): they carry the ``cuda`` marker and skip
@@ -26,6 +27,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
@@ -100,6 +104,20 @@ def test_every_compiled_tile_matches_plain(cuda, block_q, block_kv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bs", [(1, 128), (2, 256), (2, 512), (4, 1024)])
+@pytest.mark.parametrize("block_q", kernel.TILES)
+@pytest.mark.parametrize("block_kv", kernel.TILES)
+def test_every_compiled_tile_matches_plain_at_the_grid_shapes(cuda, dtype, bs, block_q, block_kv):
+    """The `kernels` campaign grid times every tile pair at OLMo-1B's heads
+    (16 x 128, causal) and may promote any of them."""
+    b, s = bs
+    q, k, v = _qkv(("grid", bs, dtype), b, s, s, 16, 16, 128, dtype, cuda)
+    got = kernel.flash_attention(q, k, v, block_q=block_q, block_kv=block_kv)
+    _close(got, ref.naive_attention(q, k, v), dtype)
+
+
+@pytest.mark.cuda
 def test_ops_dispatch_launches_the_kernel_and_counts(cuda):
     q, k, v = _qkv("ops", 1, 64, 64, 4, 4, 64, "bfloat16", cuda)
     before = kernel.flash_attention.launches
@@ -138,6 +156,8 @@ SSD_SHAPES = [           # (b, s, h, p, n, g)
     (2, 200, 8, 32, 128, 2),     # G = 2, non-pow2 S, batch 2
     (3, 77, 4, 16, 128, 1),      # P 16 (one 16-column slice), ragged chunk
     (2, 24, 8, 16, 16, 1),       # the reduced configs' shape
+    (1, 256, 48, 64, 128, 1),    # the `kernels` campaign grid's two SSD cells
+    (2, 512, 48, 64, 128, 1),
 ]
 
 
@@ -231,3 +251,115 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
     with pytest.raises(ValueError):
         ssd_kernel.ssd(x, dt, A, B, C, D, **kw)
     assert ssd_kernel.ssd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_does_not_depend_on_the_chunk(cuda, dtype):
+    """The two compiled chunks give one result within the kernel's tolerance."""
+    t = _ssd_inputs(("chunks", dtype), 1, 300, 48, 64, 128, 1, dtype, cuda)
+    y32, s32 = ssd_kernel.ssd(*t, chunk=32, return_state=True)
+    y64, s64 = ssd_kernel.ssd(*t, chunk=64, return_state=True)
+    _ssd_close((y32, s32), (y64, s64), dtype)
+
+
+# ----------------------------------------------------------------- rmsnorm
+RMS_SHAPES = [
+    (8, 128), (2, 16, 256),                      # tests/test_kernels.py's spot checks
+    (3, 96), (6, 160), (2, 5, 48), (7, 1024),    # ... and its RMS_GRID
+    (8, 1536), (1024, 1536), (16384, 1536),      # mamba2-780m's norm width
+    (8, 1600), (1024, 1600), (16384, 1600),      # hymba-1.5b's
+]
+
+
+def _rms_inputs(tag, shape, dtype, device, residual):
+    rng = np.random.default_rng(zlib.crc32(repr(tag).encode()))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, DTYPES[dtype])
+    r = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, DTYPES[dtype])
+         if residual else None)
+    scale = torch.linspace(0.5, 1.5, shape[-1], device=device)
+    return x, r, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape, residual):
+    x, r, scale = _rms_inputs(("rms", shape, dtype, residual), shape, dtype, cuda, residual)
+    got = rms_kernel.rmsnorm(x, scale, r)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _close(got, rms_ref.rmsnorm(x, scale, r), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", rms_kernel.BLOCK_ROWS)
+@pytest.mark.parametrize("row_threads", rms_kernel.ROW_THREADS)
+@pytest.mark.parametrize("shape", [(37, 1536), (11, 100)])   # ragged last block; scalar path
+def test_every_rmsnorm_instance_matches_plain(cuda, block_rows, row_threads, shape):
+    x, r, scale = _rms_inputs(("inst", shape), shape, "bfloat16", cuda, True)
+    got = rms_kernel.rmsnorm(x, scale, r, block_rows=block_rows, row_threads=row_threads)
+    _close(got, rms_ref.rmsnorm(x, scale, r), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", rms_kernel.BLOCK_ROWS)
+@pytest.mark.parametrize("row_threads", rms_kernel.ROW_THREADS)
+@pytest.mark.parametrize("rows", [2048, 16384])
+def test_every_rmsnorm_instance_matches_plain_at_the_grid_shapes(cuda, block_rows, row_threads,
+                                                                 rows):
+    """The `kernels` campaign grid's RMSNorm cells (bf16, d 1536, no
+    residual) time every instance and may promote any of them."""
+    x, _, scale = _rms_inputs(("grid", rows), (rows, 1536), "bfloat16", cuda, False)
+    got = rms_kernel.rmsnorm(x, scale, block_rows=block_rows, row_threads=row_threads)
+    _close(got, rms_ref.rmsnorm(x, scale), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_rmsnorm_kernel_reads_any_float_scale(cuda, scale_dtype):
+    x, _, scale = _rms_inputs("scale", (64, 1536), "bfloat16", cuda, False)
+    scale = scale.to(scale_dtype)
+    _close(rms_kernel.rmsnorm(x, scale), rms_ref.rmsnorm(x, scale), "bfloat16")
+
+
+@pytest.mark.cuda
+def test_rmsnorm_ops_dispatch_launches_the_kernel_and_counts(cuda):
+    x, _, scale = _rms_inputs("rms_ops", (2048, 1536), "bfloat16", cuda, False)
+    before = rms_kernel.rmsnorm.launches
+    got = rms_ops.rmsnorm(x, scale)
+    assert rms_kernel.rmsnorm.launches == before + 1
+    _close(got, rms_ref.rmsnorm(x, scale), "bfloat16")
+    plain = rms_ops.rmsnorm(x, scale, impl="plain")
+    assert rms_kernel.rmsnorm.launches == before + 1
+    _close(plain, rms_ref.rmsnorm(x, scale), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float16", "mixed", "scale_dtype", "scale_shape", "residual_shape",
+                                 "strided", "block_rows", "row_threads", "device"])
+def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
+    x, r, scale = _rms_inputs("rms_bad", (16, 256), "bfloat16", cuda, True)
+    kw = {}
+    if bad == "float16":
+        x, r = x.half(), r.half()
+    elif bad == "mixed":
+        r = r.float()
+    elif bad == "scale_dtype":
+        scale = scale.double()
+    elif bad == "scale_shape":
+        scale = scale[:128]
+    elif bad == "residual_shape":
+        r = r[:8]
+    elif bad == "strided":
+        x = x.t().contiguous().t()
+    elif bad == "block_rows":
+        kw = {"block_rows": 3}
+    elif bad == "row_threads":
+        kw = {"row_threads": 512}
+    else:
+        scale = scale.cpu()
+    before = rms_kernel.rmsnorm.launches
+    with pytest.raises(ValueError):
+        rms_kernel.rmsnorm(x, scale, r, **kw)
+    assert rms_kernel.rmsnorm.launches == before
