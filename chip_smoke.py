@@ -9,12 +9,18 @@ Phases, in order; any failure exits non-zero before the result lines:
                      for float32 matmuls and convolutions.
   2. build         — compile every CUDA kernel of the serving and tuning
                      paths from ``src/repro_torch/csrc`` into
-                     ``build/kernels/``, one ``nvcc`` per source, all at once.
+                     ``build/kernels/``, one ``nvcc`` per source, all at once;
+                     print each library's nvcc wall time, registers, spills
+                     and shared memory, and count the tensor-core
+                     instructions (``HGMMA``) in the SASS of every instance
+                     of ``flash_attention_tc`` (``cuobjdump``): none fails.
   3. kernels       — each kernel against its plain PyTorch version on the
                      card, at the main paths' shapes and at edge shapes,
                      bf16 and float32: flash attention (GQA, window,
                      q_offset, non-pow2; the campaign grid's four shapes
-                     at every compiled tile pair), the SSD scan at both
+                     at every tile pair compiled for the dtype; the
+                     libraries' shared-memory tables against the
+                     wrapper's), the SSD scan at both
                      compiled chunks (y and the final state; mamba2's and
                      hymba's prefill widths 2…1024, the grid's b2s512h48,
                      G = 2, non-pow2 S) and RMSNorm (tests/test_kernels.py's
@@ -41,8 +47,13 @@ Phases, in order; any failure exits non-zero before the result lines:
                      decode steps; then each served on the card: continuous
                      streams equal the one-at-a-time ones.
   8. timing        — each kernel, its plain version and the one PyTorch call
-                     that computes the same function (none for SSD), with
-                     CUDA events, beside the card's bound for the work.
+                     that computes the same function (none for SSD) on two
+                     yardsticks: CUDA events over 20 eager calls, and the
+                     tuner's device-held samples (``launch.microbench``,
+                     the calls queued behind a device-side hold so the
+                     card runs them back to back); beside the card's bound
+                     for the work.  Flash attention at OLMo-1B's and
+                     hymba-1.5b's widest prefill and the grid's four shapes.
   9. profile       — the OLMo-1B and mamba2-780m serves again, warm: tokens/s
                      and p50, then under torch.profiler the device's busy
                      share and top kernels.
@@ -63,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -94,7 +106,8 @@ ATTN_CASES = [
     (1, 40, 40, 4, 4, 16, 0, 0),
 ]
 # The `kernels` campaign grid's attention shapes (OLMo-1B heads, causal):
-# every compiled (block_q, block_kv) pair the grid times and may promote
+# every (block_q, block_kv) pair compiled for the dtype, which the grid
+# times and may promote
 ATTN_GRID_CASES = [(b, s, s, 16, 16, 128, 0, 0) for b, s in ((1, 128), (2, 256), (2, 512),
                                                            (4, 1024))]
 # (batch, seq, heads, head_dim, state, groups)
@@ -153,16 +166,98 @@ def phase_card() -> str:
 
 
 # -------------------------------------------------------------------- build
-def phase_build() -> None:
+FA_TC = "flash_attention_tc"
+CUDA_SOURCES = ["flash_attention", FA_TC, "ssd", "rmsnorm"]
+
+
+def _ptxas_report(log: str) -> list:
+    """(function, registers, spill bytes) per kernel of an ``-Xptxas -v`` log."""
+    out, fn, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and fn:
+            out.append((fn, int(line.split("Used")[1].split("registers")[0]), spill))
+            fn = None
+    return out
+
+
+def _tool(name: str) -> Optional[str]:
+    """A CUDA binary tool: on PATH, in the toolkit, or in triton's package."""
+    import importlib.util
+    import shutil
+
+    found = [shutil.which(name), f"/usr/local/cuda/bin/{name}"]
+    triton = importlib.util.find_spec("triton")
+    if triton is not None and triton.origin:
+        found.append(Path(triton.origin).parent / "backends" / "nvidia" / "bin" / name)
+    return next((str(c) for c in found if c and Path(c).exists()), None)
+
+
+def _sass_counts(lib: Path, opcode: str) -> dict:
+    """Function → (number of ``opcode`` instructions, number of instructions)
+    in the library's SASS."""
+    dump = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None and line.strip().startswith("/*") and line.count("*/") >= 2:
+            counts[fn][0] += line.count(opcode)
+            counts[fn][1] += 1
+    return {fn: tuple(c) for fn, c in counts.items()}
+
+
+def phase_build() -> dict:
+    """Build every source at once; report each library and prove that the
+    bf16 attention kernel's products run on the tensor cores."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel
 
     t0 = time.perf_counter()
-    libs = build.build(["flash_attention", "ssd", "rmsnorm"])
+    libs = build.build(CUDA_SOURCES)
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    info = {}
     for name, path in libs.items():
-        log = path.with_name(path.name + ".log")
-        usage = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln]
-        print(f"build: {name}: {len(usage)} kernels; ptxas: {usage[:2]}")
+        log = path.with_name(path.name + ".log").read_text()
+        wall = [ln.split()[2] for ln in log.splitlines() if ln.startswith("nvcc wall")]
+        report = _ptxas_report(log)
+        regs = [r for _, r, _ in report]
+        spills = [sp for _, _, sp in report]
+        static = [int(n) for n in re.findall(r"(\d+) bytes smem", log)]
+        info[name] = {"nvcc_s": float(wall[-1]) if wall else None, "kernels": len(report),
+                      "registers": [min(regs), max(regs)] if regs else None,
+                      "max_spill_bytes": max(spills) if spills else None}
+        print(f"build: {name}: nvcc {wall[-1] if wall else '(cached)'} s, {len(report)} kernels, "
+              f"registers {info[name]['registers']}, spill stores up to "
+              f"{info[name]['max_spill_bytes']} bytes, static shared memory up to "
+              f"{max(static, default=0)} bytes (dynamic: below for attention)")
+    for dtype, source in kernel.SOURCES.items():
+        table = [(bq, bk, d, kernel.smem_bytes(dtype, bq, bk, d)) for bq in kernel.TILES
+                 for bk in kernel.TILES for d in kernel.HEAD_DIMS
+                 if kernel.compiled(dtype, bq, bk, d)]
+        print(f"build: {source} ({dtype}): {len(table)} instances, dynamic shared memory "
+              f"{min(t[3] for t in table)}-{max(t[3] for t in table)} bytes")
+    if _tool("cuobjdump") is None:
+        raise AssertionError("cuobjdump not found: the tensor-core check cannot run")
+    sass = _sass_counts(libs[FA_TC], "HGMMA")
+    regs = {fn: r for fn, r, _ in _ptxas_report(libs[FA_TC].with_name(
+        libs[FA_TC].name + ".log").read_text())}
+    for fn, (n, size) in sass.items():
+        tiles = "/".join(re.findall(r"Li(\d+)E", fn)) or fn     # <BQ, BKV, D> of the mangled name
+        print(f"build: {FA_TC} <{tiles}> SASS: {n:3d} HGMMA of {size} instructions, "
+              f"{regs.get(fn, '?')} registers at entry")
+    hgmma = [n for n, _ in sass.values()]
+    if not hgmma or min(hgmma) == 0:
+        raise AssertionError(f"a bf16 attention instance has no HGMMA in its SASS: {sass}")
+    info[FA_TC]["hgmma_per_instance"] = [min(hgmma), max(hgmma)]
+    info[FA_TC]["sass_instructions"] = [min(c for _, c in sass.values()),
+                                        max(c for _, c in sass.values())]
+    return info
 
 
 # ------------------------------------------------------------------ kernels
@@ -175,13 +270,26 @@ def _qkv(case, dtype, device, seed):
 
 def phase_kernels(device) -> dict:
     """Kernel vs plain on the card: the edge and serve shapes at the default
-    tiles, the campaign grid's shapes at every compiled tile pair; returns
-    the max abs error per dtype."""
+    tiles, the campaign grid's shapes at every tile pair compiled for the
+    dtype; the libraries' shared-memory tables against the wrapper's.
+    Returns the max abs error per dtype."""
     kernel, ref = _import_port()
-    cases = [(case, 64, 64) for case in ATTN_CASES] + [
-        (case, bq, bk) for case in ATTN_GRID_CASES for bq in kernel.TILES for bk in kernel.TILES]
+    for dtype, source in kernel.SOURCES.items():
+        for bq in kernel.TILES:
+            for bk in kernel.TILES:
+                for d in kernel.HEAD_DIMS:
+                    want = kernel.smem_bytes(dtype, bq, bk, d)
+                    want = want if kernel.compiled(dtype, bq, bk, d) else -1
+                    got = kernel.library_smem_bytes(dtype, bq, bk, d)
+                    if got != want:
+                        raise AssertionError(f"{source} {bq}/{bk} d{d}: the library gives "
+                                             f"{got} bytes, the wrapper {want}")
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
+        pairs = [(bq, bk) for bq in kernel.TILES for bk in kernel.TILES
+                 if kernel.compiled(dtype, bq, bk, 128)]
+        cases = [(case, 64, 64) for case in ATTN_CASES] + [
+            (case, bq, bk) for case in ATTN_GRID_CASES for bq, bk in pairs]
         worst = 0.0
         for i, (case, bq, bk) in enumerate(cases):
             q, k, v = _qkv(case, dtype, device, seed=1000 + i)
@@ -199,9 +307,9 @@ def phase_kernels(device) -> dict:
                                      f"tol {tol:.3g}")
             worst = max(worst, err.max().item())
         errs[str(dtype).replace("torch.", "")] = worst
-        print(f"kernels: flash_attention vs naive_attention, {dtype}: {len(ATTN_CASES)} cases at "
-              f"tiles 64/64 + {len(ATTN_GRID_CASES)} grid shapes x tile pairs {kernel.TILES}^2, "
-              f"max abs err {worst:.3g} (tol {TOL[dtype]:.3g} abs + rel)")
+        print(f"kernels: flash_attention ({kernel.SOURCES[dtype]}) vs naive_attention, {dtype}: "
+              f"{len(ATTN_CASES)} cases at tiles 64/64 + {len(ATTN_GRID_CASES)} grid shapes x "
+              f"tile pairs {pairs}, max abs err {worst:.3g} (tol {TOL[dtype]:.3g} abs + rel)")
     return errs
 
 
@@ -519,6 +627,11 @@ def phase_model(device, name: str) -> float:
 
 
 # ------------------------------------------------------------------ profile
+# kernel → a part of its device-side name (csrc/*.cu)
+PORT_KERNELS = {"flash_attention": "flash_attention_", "ssd": "ssd_fwd_kernel",
+                "rmsnorm": "rmsnorm_fwd_kernel"}
+
+
 def _busy_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     busy, end = 0.0, float("-inf")
@@ -568,6 +681,10 @@ def phase_profile(device, serve: dict, card: str, top: int = 8) -> None:
           f"(idle share {1 - busy / window:.3f}, profiler on), {len(kernels)} device ops")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"{tag}: {us / total:6.3f} of device time, {us / 1e3:8.2f} ms  {name[:90]}")
+    for kernel, marker in PORT_KERNELS.items():
+        us = sum(t for name, t in by_name.items() if marker in name)
+        print(f"{tag}: the port's {kernel} kernel: {us / total:.4f} of device time, "
+              f"{us / 1e3:.2f} ms")
 
 
 # ------------------------------------------------------------------- timing
@@ -598,6 +715,19 @@ def _device_ms(fn, reps: int = 20) -> tuple:
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps, len(kernels) // reps
 
 
+def _both_ms(fn, *tensors, reps: int = 20) -> tuple:
+    """(events ms, device-held ms) of one call of ``fn(*tensors)``.  Events
+    over ``reps`` eager calls read the host's dispatch rate wherever it is
+    slower than the card; the device-held reading is the median of the
+    tuner's samples (``launch.microbench.time_samples_us``: 10 calls queued
+    behind a device-side hold, so the card runs them back to back)."""
+    from repro_torch.launch.microbench import time_samples_us
+
+    events = _time_ms(lambda: fn(*tensors), reps)
+    held = float(np.median(time_samples_us(fn, *tensors, reps=5))) / 1e3
+    return events, held
+
+
 def attention_bound_ms(b: int, s: int, h: int, kh: int, d: int, elem_bytes: int,
                        peak_flops: float) -> tuple:
     """Least time for causal attention at these shapes: q, k, v read once and
@@ -608,22 +738,44 @@ def attention_bound_ms(b: int, s: int, h: int, kh: int, d: int, elem_bytes: int,
     return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
 
 
+# name: (batch, seq, heads, kv_heads, head_dim, window), bf16, causal; every
+# window is wider than its sequence, so SDPA's causal mask is the same function
+ATTN_TIMED = {
+    "olmo-1b prefill": (1, 1024, 16, 16, 128, 0),
+    "hymba-1.5b prefill": (1, 1024, 25, 5, 64, 2048),
+    **{f"grid b{b}q{s}": (b, s, 16, 16, 128, 0) for b, s in ((1, 128), (2, 256), (2, 512),
+                                                              (4, 1024))},
+}
+
+
 def phase_timing(device) -> dict:
+    """Flash attention at the default tiles, its plain version and SDPA at
+    each ATTN_TIMED shape, on both yardsticks; the first shape is the
+    kernel's headline row."""
     kernel, ref = _import_port()
-    case = (1, 1024, 1024, 16, 16, 128, 0, 0)
-    q, k, v = _qkv(case, torch.bfloat16, device, seed=7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     n0 = kernel.flash_attention.launches
-    kernel_ms = _time_ms(lambda: kernel.flash_attention(q, k, v, causal=True))
-    plain_ms = _time_ms(lambda: ref.naive_attention(q, k, v, causal=True))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
+    rows = {}
+    for name, (b, s, h, kh, d, window) in ATTN_TIMED.items():
+        q, k, v = _qkv((b, s, s, h, kh, d, window, 0), torch.bfloat16, device, seed=7)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms, ms_dev = _both_ms(lambda *t: kernel.flash_attention(*t, causal=True, window=window),
+                              q, k, v)
+        plain, plain_dev = _both_ms(lambda *t: ref.naive_attention(*t, causal=True, window=window),
+                                    q, k, v)
+        lib, lib_dev = _both_ms(lambda *t: sdpa(*t, is_causal=True, enable_gqa=h != kh),
+                                qt, kt, vt)
+        bound_ms, bound_by = attention_bound_ms(b, s, h, kh, d, 2, PEAK_BF16_FLOPS)
+        rows[name] = {"shape": f"bf16 B{b} S{s} H{h} K{kh} D{d} causal"
+                      + (f" window {window}" if window else ""),
+                      "ms": ms, "ms_device": ms_dev, "plain_ms": plain,
+                      "plain_ms_device": plain_dev, "library_ms": lib,
+                      "library_ms_device": lib_dev, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"timing: flash_attention {rows[name]['shape']} ({name}), events / device-held: "
+              f"kernel {ms:.4f} / {ms_dev:.4f} ms, plain {plain:.4f} / {plain_dev:.4f} ms, "
+              f"SDPA {lib:.4f} / {lib_dev:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     kernel.flash_attention.launches = n0     # timing launches are not the main path's
-    bound_ms, bound_by = attention_bound_ms(1, 1024, 16, 16, 128, 2, PEAK_BF16_FLOPS)
-    print(f"timing: flash_attention bf16 B1 S1024 H16 D128 causal: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return {**rows["olmo-1b prefill"], "shapes": rows}
 
 
 def ssd_bound_ms(b: int, s: int, h: int, p: int, n: int, g: int, elem_bytes: int,
@@ -650,13 +802,13 @@ def phase_timing_ssd(device) -> dict:
     case = (1, 1024, 48, 64, 128, 1)
     t = _ssd_inputs(case, torch.bfloat16, device, seed=8)
     n0 = kernel.ssd.launches
-    kernel_ms = _time_ms(lambda: kernel.ssd(*t, chunk=64, return_state=True))
-    plain_ms = _time_ms(lambda: ref.ssd_chunked(*t, chunk=64, return_state=True))
+    kernel_ms, kernel_dev = _both_ms(lambda *a: kernel.ssd(*a, chunk=64, return_state=True), *t)
+    plain_ms, plain_dev = _both_ms(lambda *a: ref.ssd_chunked(*a, chunk=64, return_state=True), *t)
     kernel.ssd.launches = n0                 # timing launches are not the main path's
     bound_ms, bound_by = ssd_bound_ms(*case, 2, 64, PEAK_BF16_FLOPS)
-    print(f"timing: ssd bf16 B1 S1024 H48 P64 N128 G1: kernel {kernel_ms:.4f} ms, "
-          f"plain ssd_chunked {plain_ms:.4f} ms, no library call computes SSD, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"timing: ssd bf16 B1 S1024 H48 P64 N128 G1, events / device-held: kernel "
+          f"{kernel_ms:.4f} / {kernel_dev:.4f} ms, plain ssd_chunked {plain_ms:.4f} / "
+          f"{plain_dev:.4f} ms, no library call computes SSD, bound {bound_ms:.4f} ms ({bound_by})")
 
     # the plain one-token update at the mamba2 serve's decode shape (8 slots):
     # its f32 state must at least be read and written once a layer.  Events
@@ -672,7 +824,8 @@ def phase_timing_ssd(device) -> dict:
           f"by events (host dispatch included), {decode_device_ms:.4f} ms of device kernels "
           f"({decode_ops} kernels); x 48 layers {48 * decode_device_ms:.4f} ms of device time "
           f"a decode step; bound (state read + written once) {decode_bound_ms:.4f} ms a layer")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+    return {"ms": kernel_ms, "ms_device": kernel_dev, "plain_ms": plain_ms,
+            "plain_ms_device": plain_dev, "library_ms": None, "library_ms_device": None,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -692,8 +845,8 @@ def rmsnorm_bound_ms(rows: int, d: int, elem_bytes: int, scale_bytes: int,
 def phase_timing_rmsnorm(device) -> dict:
     """The kernel (default launch: 1 row a block, 32 threads a row), the
     plain version and ``torch.nn.functional.rms_norm`` (a yardstick the port
-    never calls) at the grid's r16384d1536 in bf16, with a bf16 scale; CUDA
-    events over 20 launches, as the other kernels."""
+    never calls) at the grid's r16384d1536 in bf16, with a bf16 scale, on
+    both yardsticks."""
     from repro_torch.kernels.rmsnorm import kernel, ref
 
     rows, d = 16384, 1536
@@ -702,17 +855,19 @@ def phase_timing_rmsnorm(device) -> dict:
     n0 = kernel.rmsnorm.launches
     out = {}
     for residual in (False, True):
-        rr = r if residual else None
-        k_ms = _time_ms(lambda: kernel.rmsnorm(x, scale, rr))
-        p_ms = _time_ms(lambda: ref.rmsnorm(x, scale, rr))
-        lib_ms = None if residual else _time_ms(
-            lambda: torch.nn.functional.rms_norm(x, (d,), scale, eps=1e-5))
+        args = (x, scale, r) if residual else (x, scale)
+        k_ms, k_dev = _both_ms(kernel.rmsnorm, *args)
+        p_ms, p_dev = _both_ms(ref.rmsnorm, *args)
+        lib_ms, lib_dev = (None, None) if residual else _both_ms(
+            lambda x, scale: torch.nn.functional.rms_norm(x, (d,), scale, eps=1e-5), *args)
         b_ms, b_by = rmsnorm_bound_ms(rows, d, 2, 2, residual)
         tag = "rmsnorm_res" if residual else "rmsnorm"
-        out[tag] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+        out[tag] = {"ms": k_ms, "ms_device": k_dev, "plain_ms": p_ms, "plain_ms_device": p_dev,
+                    "library_ms": lib_ms, "library_ms_device": lib_dev, "bound_ms": b_ms,
                     "bound_by": b_by}
-        print(f"timing: {tag} bf16 r{rows}d{d}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              + (f"F.rms_norm {lib_ms:.4f} ms, " if lib_ms is not None else
+        print(f"timing: {tag} bf16 r{rows}d{d}, events / device-held: kernel {k_ms:.4f} / "
+              f"{k_dev:.4f} ms, plain {p_ms:.4f} / {p_dev:.4f} ms, "
+              + (f"F.rms_norm {lib_ms:.4f} / {lib_dev:.4f} ms, " if lib_ms is not None else
                  "no single library call normalizes x + residual, ")
               + f"bound {b_ms:.4f} ms ({b_by})")
     kernel.rmsnorm.launches = n0             # timing launches are not the main path's
@@ -854,7 +1009,7 @@ def main() -> int:
     device = torch.device("cuda")
     _import_port()
     card = phase_card()
-    phase_build()
+    builds = phase_build()
     errs = phase_kernels(device)
     ssd_errs = phase_kernels_ssd(device)
     rms_errs = phase_kernels_rmsnorm(device)
@@ -880,63 +1035,31 @@ def main() -> int:
         by_path["campaign"] = campaign["launches"][kernel_name]
         return sum(by_path.values()), by_path
 
-    fa_n, fa_by = launches("flash_attention")
-    ssd_n, ssd_by = launches("ssd")
-    rms_n, rms_by = launches("rmsnorm")
-    line = {"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
-        "launches": fa_n,
-        "launches_by_path": fa_by,
-        "max_abs_err": max(errs.values()),
-        "max_abs_err_by_dtype": errs,
-        "ms": timing["ms"],
-        "kernel_ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-        "shape": "bf16 B1 S1024 H16 K16 D128 causal",
-        "card": card,
-    }, {
-        "name": "ssd",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/ssd.cu",
-        "replaces": "src/repro/kernels/ssd/kernel.py:74",
-        "launches": ssd_n,
-        "launches_by_path": ssd_by,
-        "max_abs_err": max(ssd_errs["y"].values()),
-        "max_abs_err_by_dtype": ssd_errs["y"],
-        "max_abs_err_state": ssd_errs["state"],
-        "ms": timing_ssd["ms"],
-        "kernel_ms": timing_ssd["ms"],
-        "plain_ms": timing_ssd["plain_ms"],
-        "bound_ms": timing_ssd["bound_ms"],
-        "bound_by": timing_ssd["bound_by"],
-        "library_ms": timing_ssd["library_ms"],
-        "shape": "bf16 B1 S1024 H48 P64 N128 G1",
-        "card": card,
-    }, {
-        "name": "rmsnorm",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/rmsnorm.cu",
-        "replaces": "src/repro/kernels/rmsnorm/kernel.py:33",
-        "launches": rms_n,
-        "launches_by_path": rms_by,
-        "max_abs_err": max(rms_errs.values()),
-        "max_abs_err_by_dtype": rms_errs,
-        "ms": timing_rms["rmsnorm"]["ms"],
-        "kernel_ms": timing_rms["rmsnorm"]["ms"],
-        "plain_ms": timing_rms["rmsnorm"]["plain_ms"],
-        "bound_ms": timing_rms["rmsnorm"]["bound_ms"],
-        "bound_by": timing_rms["rmsnorm"]["bound_by"],
-        "library_ms": timing_rms["rmsnorm"]["library_ms"],
-        "residual": timing_rms["rmsnorm_res"],
-        "shape": "bf16 r16384 d1536, bf16 scale",
-        "card": card,
-    }]}
+    timed = ("ms", "ms_device", "plain_ms", "plain_ms_device", "library_ms",
+             "library_ms_device", "bound_ms", "bound_by")
+
+    def entry(name, source, replaces, errs_by_dtype, timing, shape, **extra):
+        n, by_path = launches(name)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "launches_by_path": by_path,
+                "max_abs_err": max(errs_by_dtype.values()), "max_abs_err_by_dtype": errs_by_dtype,
+                **{key: timing[key] for key in timed}, "kernel_ms": timing["ms"],
+                "shape": shape, "card": card, **extra}
+
+    line = {"kernels": [
+        entry("flash_attention", "src/repro_torch/csrc/flash_attention_tc.cu",
+              "src/repro/kernels/flash_attention/kernel.py:85", errs, timing,
+              timing["shape"], source_float32="src/repro_torch/csrc/flash_attention.cu",
+              shapes=timing["shapes"], build={k: builds[k] for k in ("flash_attention_tc",
+                                                                      "flash_attention")}),
+        entry("ssd", "src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:74",
+              ssd_errs["y"], timing_ssd, "bf16 B1 S1024 H48 P64 N128 G1",
+              max_abs_err_state=ssd_errs["state"], build=builds["ssd"]),
+        entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm/kernel.py:33", rms_errs, timing_rms["rmsnorm"],
+              "bf16 r16384 d1536, bf16 scale", residual=timing_rms["rmsnorm_res"],
+              build=builds["rmsnorm"]),
+    ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,22 @@
-// Blocked attention forward with online softmax, for Hopper (sm_90a).
+// Blocked attention forward with online softmax, for Hopper (sm_90a), float32.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas
-// (the TPU kernel, body `_kernel`).  Same function: q (B,Sq,H,D) against
-// k, v (B,Sk,K,D), GQA head h -> KV head h / (H/K), causal and sliding-window
-// masks on absolute positions shifted by q_offset, masked scores -1e30, f32
-// running max m / sum l / accumulator, l clamped at 1e-30, output in q's dtype.
+// (the TPU kernel, body `_kernel`) for float32 q, k, v; bfloat16 goes to the
+// tensor-core kernel of flash_attention_tc.cu.  The Python wrapper picks the
+// library by dtype and this one takes float32 only, so a bfloat16 call never
+// reaches it.  It stays on exact f32 FMAs because the float32 checks (the
+// 170*eps tolerance, the reduced models on the card against the CPU) need
+// full f32 products, which TF32 tensor cores would break.  Same function:
+// q (B,Sq,H,D) against k, v (B,Sk,K,D), GQA head h -> KV head h / (H/K),
+// causal and sliding-window masks on absolute positions shifted by q_offset,
+// masked scores -1e30, f32 running max m / sum l / accumulator, l clamped at
+// 1e-30, output in float32.
 //
 // What bounds it on this card: at OLMo-1B's prefill shapes (B=1, H=K=16,
-// D=128, S up to 1024, bf16) the function must move q, k, v and o once
-// (16.8 MB at S=1024, 5.0 us at 3.35 TB/s) and do 4*D FLOPs per causal
-// (q, k) pair (4.3 GFLOP at S=1024, 4.4 us at 989 TFLOP/s): bytes, narrowly.
+// D=128, S up to 1024) the function must move q, k, v and o once (33.6 MB
+// in f32 at S=1024, 10.0 us at 3.35 TB/s) and do 4*D FLOPs per causal
+// (q, k) pair (4.3 GFLOP at S=1024, 64 us at the 67 TFLOP/s of f32 FMAs):
+// operations.
 //
 // Design.  The TPU kernel walks KV blocks on a sequential 4th grid axis and
 // carries (acc, m, l) in VMEM scratch.  Here that axis is a loop inside one
@@ -19,30 +26,27 @@
 // iterations (they hit L2 for the other q-tiles of the same head).  KV tiles
 // wholly masked by the causal or window bound are never loaded, and the
 // ragged edges (Sq, Sk not multiples of the tiles) are masked in the kernel.
-// Scores and PV products are plain f32 FMAs over shared memory: a simple,
-// exact first kernel.  It is bound by shared-memory bandwidth, far above the
-// card's bound; the tensor-core path (mma / wgmma, TMA, warp specialisation)
-// is later work.
+// Scores and PV products are plain f32 FMAs over shared memory, bound by
+// shared-memory bandwidth.
 //
 // Thread layout: BQ*4 threads = (BQ/4 row groups) x 16 lanes.  Lane tx of row
 // group ty owns q rows 4ty..4ty+3, score columns tx + 16j and output columns
 // tx + 16c; a row's max and sum reduce over its 16 lanes with shuffles.
 //
-// Entry point: repro_flash_attention_fwd (plain C, called through ctypes);
-// it launches on the caller's stream and returns cudaGetLastError().
+// Tiles: block_q, block_kv in {64, 128}, each instance compiled where its
+// shared memory fits a block's 227 KB (128/128 at D=128 needs 264 KB and is
+// not); repro_flash_attention_smem_bytes gives -1 for the others.
+//
+// Entry points (plain C, called through ctypes): repro_flash_attention_fwd
+// launches on the caller's stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may use on Hopper
 
 template <typename T, int BQ, int BKV, int D>
 struct Tile {
@@ -138,9 +142,9 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < D; ++d) {
       float qv[4], kv[L::kScoreCols];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = to_f32(qs[(ty * 4 + i) * L::kLd + d]);
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * L::kLd + d];
 #pragma unroll
-      for (int j = 0; j < L::kScoreCols; ++j) kv[j] = to_f32(ks[(tx + 16 * j) * L::kLd + d]);
+      for (int j = 0; j < L::kScoreCols; ++j) kv[j] = ks[(tx + 16 * j) * L::kLd + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -186,7 +190,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < k_rows; ++j) {
       float vv[L::kOutCols];
 #pragma unroll
-      for (int c = 0; c < L::kOutCols; ++c) vv[c] = to_f32(vs[j * D + tx + 16 * c]);
+      for (int c = 0; c < L::kOutCols; ++c) vv[c] = vs[j * D + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = ps[(ty * 4 + i) * L::kLdP + j];
@@ -203,7 +207,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
     T* out = o + ((size_t)b * sq + q0 + r) * q_stride + (size_t)h * D;
 #pragma unroll
-    for (int c = 0; c < L::kOutCols; ++c) store(out + tx + 16 * c, acc[i][c] / denom);
+    for (int c = 0; c < L::kOutCols; ++c) out[tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
@@ -212,17 +216,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
                    int sk, int n_heads, int n_kv, int causal, int window, int q_offset,
                    float scale, cudaStream_t stream) {
   using L = Tile<T, BQ, BKV, D>;
-  auto kern = flash_attention_fwd_kernel<T, BQ, BKV, D>;
-  if (L::kSmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
-    if (e != cudaSuccess) return e;
+  if constexpr (L::kSmem > kMaxSmem) {
+    return cudaErrorInvalidValue;  // not compiled: the tiles do not fit a block's shared memory
+  } else {
+    auto kern = flash_attention_fwd_kernel<T, BQ, BKV, D>;
+    if (L::kSmem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+      if (e != cudaSuccess) return e;
+    }
+    const dim3 grid((sq + BQ - 1) / BQ, n_heads, batch);
+    kern<<<grid, L::kThreads, L::kSmem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), sq, sk, n_heads, n_kv, causal, window, q_offset, scale);
+    return cudaGetLastError();
   }
-  const dim3 grid((sq + BQ - 1) / BQ, n_heads, batch);
-  kern<<<grid, L::kThreads, L::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, n_heads, n_kv, causal, window, q_offset, scale);
-  return cudaGetLastError();
 }
 
 template <typename T, int BQ, int BKV>
@@ -238,36 +246,46 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
   }
 }
 
-template <typename T>
-cudaError_t dispatch_tiles(int block_q, int block_kv, int d, const void* q, const void* k,
-                           const void* v, void* o, int batch, int sq, int sk, int n_heads,
-                           int n_kv, int causal, int window, int q_offset, float scale,
-                           cudaStream_t stream) {
-  if (block_q == 64 && block_kv == 64)
-    return dispatch_d<T, 64, 64>(d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, stream);
-  if (block_q == 64 && block_kv == 32)
-    return dispatch_d<T, 64, 32>(d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, stream);
-  if (block_q == 32 && block_kv == 64)
-    return dispatch_d<T, 32, 64>(d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, stream);
-  if (block_q == 32 && block_kv == 32)
-    return dispatch_d<T, 32, 32>(d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, stream);
-  return cudaErrorInvalidValue;
+template <int BQ, int BKV>
+long long smem_d(int d) {
+  size_t bytes;
+  switch (d) {
+    case 16: bytes = Tile<float, BQ, BKV, 16>::kSmem; break;
+    case 32: bytes = Tile<float, BQ, BKV, 32>::kSmem; break;
+    case 64: bytes = Tile<float, BQ, BKV, 64>::kSmem; break;
+    case 128: bytes = Tile<float, BQ, BKV, 128>::kSmem; break;
+    default: return -1;
+  }
+  return bytes <= kMaxSmem ? (long long)bytes : -1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Tensors are contiguous (B,S,heads,D)
-// and 16-byte aligned; the Python wrapper checks both before the call.
+// Tensors are contiguous float32 (B,S,heads,D) and 16-byte aligned; the
+// Python wrapper checks both before the call.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                         int dtype, int batch, int sq, int sk, int n_heads,
-                                         int n_kv, int d, int causal, int window, int q_offset,
-                                         float scale, int block_q, int block_kv, void* stream) {
+                                         int batch, int sq, int sk, int n_heads, int n_kv, int d,
+                                         int causal, int window, int q_offset, float scale,
+                                         int block_q, int block_kv, void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || n_kv <= 0 || n_heads % n_kv != 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_tiles<float>(block_q, block_kv, d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, s);
-  if (dtype == 1)
-    return (int)dispatch_tiles<__nv_bfloat16>(block_q, block_kv, d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, s);
+  if (block_q == 64 && block_kv == 64)
+    return (int)dispatch_d<float, 64, 64>(d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, s);
+  if (block_q == 64 && block_kv == 128)
+    return (int)dispatch_d<float, 64, 128>(d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, s);
+  if (block_q == 128 && block_kv == 64)
+    return (int)dispatch_d<float, 128, 64>(d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, s);
+  if (block_q == 128 && block_kv == 128)
+    return (int)dispatch_d<float, 128, 128>(d, q, k, v, o, batch, sq, sk, n_heads, n_kv, causal, window, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one instance in bytes, -1 where none is compiled.
+extern "C" long long repro_flash_attention_smem_bytes(int block_q, int block_kv, int d) {
+  if (block_q == 64 && block_kv == 64) return smem_d<64, 64>(d);
+  if (block_q == 64 && block_kv == 128) return smem_d<64, 128>(d);
+  if (block_q == 128 && block_kv == 64) return smem_d<128, 64>(d);
+  if (block_q == 128 && block_kv == 128) return smem_d<128, 128>(d);
+  return -1;
 }

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -48,8 +49,9 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     """Compile every named source whose library is missing, all at once.
 
     Returns name → library path.  The compiler's resource report
-    (``-Xptxas -v``) is kept beside each library as ``<lib>.log``.  Raises
-    if any compile fails, after every started ``nvcc`` has exited.
+    (``-Xptxas -v``) is kept beside each library as ``<lib>.log``, with the
+    source's ``nvcc`` wall time on its last line (``nvcc wall <s> s``).
+    Raises if any compile fails, after every started ``nvcc`` has exited.
     """
     out = {n: library_path(n) for n in names}
     todo = {n: p for n, p in out.items() if not p.exists()}
@@ -60,17 +62,24 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     procs = {}
     for n, p in todo.items():
         tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
+        log = p.with_name(p.name + ".log").open("w")
         procs[n] = (subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                    tmp, p)
+                                     stdout=log, stderr=subprocess.STDOUT),
+                    log, tmp, p, time.perf_counter())
     failed = []
-    for n, (proc, tmp, p) in procs.items():
-        log, _ = proc.communicate()
-        p.with_name(p.name + ".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, p)  # atomic: a concurrent process never loads a partial file
+    while procs:
+        for n, (proc, log, tmp, p, t0) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            log.write(f"nvcc wall {time.perf_counter() - t0:.1f} s\n")
+            log.close()
+            del procs[n]
+            if proc.returncode != 0:
+                failed.append(f"{n}: nvcc exited {proc.returncode}\n"
+                              + p.with_name(p.name + ".log").read_text())
+                continue
+            os.replace(tmp, p)  # atomic: a concurrent process never loads a partial file
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out

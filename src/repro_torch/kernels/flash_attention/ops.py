@@ -4,10 +4,11 @@
 ``torch_flash_attention``: its tunables (impl / block_q / block_kv) are
 resolved per call for the call's workload signature, as in the reference
 (``repro/kernels/flash_attention/ops.py``).  ``impl="kernel"`` (the
-default) is the Hopper kernel of ``kernel.py``; its tiles are the ones it
-was compiled for, which fit an SM's shared memory (the TPU's 128–2048 VMEM
-tiles do not).  The plain implementations take the same tiles, aligned
-to the sequence by halving.
+default) is the Hopper kernel of ``kernel.py``; its tile choices are
+``kernel.TILES``, the tensor-core kernel's (the TPU's 128–2048 VMEM tiles
+do not fit a block's shared memory), and the default pair is compiled for
+both dtypes at every head dim.  The plain implementations take the same
+tiles, aligned to the sequence by halving.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ __all__ = ["flash_attention", "decode_attention", "attention_settings",
         Categorical("block_q", default=64, choices=kernel.TILES,
                     description="Q tile (one CUDA block's rows)"),
         Categorical("block_kv", default=64, choices=kernel.TILES,
-                    description="KV tile staged through shared memory"),
+                    description="KV tile of the shared-memory ring"),
     ),
     metrics=(
         MetricSpec("time_us", "d"),

@@ -38,16 +38,16 @@ def test_fingerprints_name_torch_and_this_device():
 def test_resolution_order_override_then_explicit_then_defaults():
     wl = "b1q64k64d16"
     assert ops.attention_settings.settings_for(wl)["block_q"] == 64
-    inst = ops.AttentionKernelSettings(block_q=32)            # explicit on this instance
-    assert inst.settings_for(wl)["block_q"] == 32
+    inst = ops.AttentionKernelSettings(block_q=128)           # explicit on this instance
+    assert inst.settings_for(wl)["block_q"] == 128
     configstore.set_override("torch_flash_attention", wl, {"block_q": 64, "impl": "naive"})
     try:
         got = inst.settings_for(wl)
         assert got["block_q"] == 64 and got["impl"] == "naive"
-        assert inst.settings_for("b1q128k128d16")["block_q"] == 32  # other contexts untouched
+        assert inst.settings_for("b1q128k128d16")["block_q"] == 128  # other contexts untouched
     finally:
         configstore.clear_override("torch_flash_attention", wl)
-    assert inst.settings_for(wl)["block_q"] == 32
+    assert inst.settings_for(wl)["block_q"] == 128
 
 
 def test_override_is_domain_checked():

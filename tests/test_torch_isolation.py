@@ -72,6 +72,17 @@ def test_the_tuning_slice_is_covered():
     assert (PORT / "csrc" / "rmsnorm.cu").exists()
 
 
+def test_the_tensor_core_attention_is_covered():
+    """The bf16 attention source and its wrapper are among what the checks
+    here walk, and the wrapper names a library for each dtype it takes."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    assert PORT / "kernels" / "flash_attention" / "kernel.py" in SOURCES
+    for name in kernel.SOURCES.values():
+        assert (PORT / "csrc" / f"{name}.cu").exists()
+    assert (PORT / "csrc" / "flash_attention_tc.cu").read_text().count("wgmma.mma_async") >= 2
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_nothing_of_jax_or_repro(path):
     roots = {name.split(".")[0] for name in _imported(ast.parse(path.read_text()))}
@@ -177,3 +188,34 @@ def test_chip_smoke_rmsnorm_bound_counts_bytes(chip_smoke):
         moved = 2 * 16384 * 1536 * (reads + 1) + 2 * 1536
         assert ms == pytest.approx(1e3 * moved / chip_smoke.PEAK_BYTES) and by == "bytes"
         assert ms == pytest.approx(want, rel=0.01)
+
+
+def test_chip_smoke_reads_ptxas_reports(chip_smoke):
+    """The build phase's parser of an ``-Xptxas -v`` log: one row per entry
+    function with its registers and spill stores."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z1fv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1fv",
+        "    40 bytes stack frame, 52 bytes spill stores, 72 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 40 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1gv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers",
+        "nvcc wall 9.5 s"])
+    assert chip_smoke._ptxas_report(log) == [("_Z1fv", 168, 52), ("_Z1gv", 96, 0)]
+
+
+def test_chip_smoke_times_every_attention_shape_it_names(chip_smoke):
+    """OLMo-1B's and hymba-1.5b's widest prefill and the campaign grid's four
+    attention workloads; SDPA's causal mask is the function at each."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import campaign
+
+    shapes = chip_smoke.ATTN_TIMED
+    assert shapes["olmo-1b prefill"] == (1, 1024, 16, 16, 128, 0)
+    assert shapes["hymba-1.5b prefill"] == (1, 1024, 25, 5, 64, 2048)
+    grid = {ops.workload_signature(b, s, s, d) for b, s, h, kh, d, _ in shapes.values()
+            if h == campaign.ATTN_HEADS}
+    assert set(campaign.GRIDS["kernels"]["torch_flash_attention"]) <= grid
+    assert all(w == 0 or w >= s for _, s, _, _, _, w in shapes.values())

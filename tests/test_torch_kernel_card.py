@@ -1,5 +1,6 @@
 """The port's Hopper kernels on the card, against their plain versions:
-flash attention (``csrc/flash_attention.cu``), the SSD scan
+flash attention (``csrc/flash_attention_tc.cu`` for bfloat16, on the tensor
+cores; ``csrc/flash_attention.cu`` for float32), the SSD scan
 (``csrc/ssd.cu``, both compiled chunks) and row RMSNorm
 (``csrc/rmsnorm.cu``).
 
@@ -11,10 +12,9 @@ runs on a machine that has only the port's dependencies:
     python -m pytest -q -m cuda tests/test_torch_kernel_card.py
 
 Inputs are drawn with numpy from ``zlib.crc32`` seeds.  Tolerances (absolute
-and relative) are tests/test_kernels.py's ``_grid_tol``: bfloat16 5·2⁻⁸ (the
-plain version rounds the probabilities to bf16 before the PV product, the
-kernel keeps them in f32), float32 170·eps (summation order inside the
-reductions); for the SSD y with the headroom 4 that file gives the scan,
+and relative) are tests/test_kernels.py's ``_grid_tol``: bfloat16 5·2⁻⁸,
+float32 170·eps (summation order inside the reductions; both the plain version and the tensor-core kernel round the
+probabilities to bf16 before the PV product); for the SSD y with the headroom 4 that file gives the scan,
 and 1e-3 on the float32 state.  The SSD's B and C are drawn with variance
 N^-1/2, so C·B has unit variance as after the model's projections: at
 N = 128 and unit B, C the terms of y reach ~10², and any two f32 summation
@@ -110,11 +110,69 @@ def test_every_compiled_tile_matches_plain(cuda, block_q, block_kv):
 @pytest.mark.parametrize("block_kv", kernel.TILES)
 def test_every_compiled_tile_matches_plain_at_the_grid_shapes(cuda, dtype, bs, block_q, block_kv):
     """The `kernels` campaign grid times every tile pair at OLMo-1B's heads
-    (16 x 128, causal) and may promote any of them."""
+    (16 x 128, causal) and may promote any of them; a pair that is not
+    compiled for the dtype (float32 128/128 at head_dim 128) is refused."""
     b, s = bs
     q, k, v = _qkv(("grid", bs, dtype), b, s, s, 16, 16, 128, dtype, cuda)
+    if not kernel.compiled(DTYPES[dtype], block_q, block_kv, 128):
+        with pytest.raises(ValueError, match=f"block_q={block_q}, block_kv={block_kv}"):
+            kernel.flash_attention(q, k, v, block_q=block_q, block_kv=block_kv)
+        return
     got = kernel.flash_attention(q, k, v, block_q=block_q, block_kv=block_kv)
     _close(got, ref.naive_attention(q, k, v), dtype)
+
+
+INSTANCES = [(dt, bq, bk, d) for dt in DTYPES for bq in kernel.TILES for bk in kernel.TILES
+             for d in kernel.HEAD_DIMS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", INSTANCES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}-d{c[3]}")
+@pytest.mark.parametrize("case", ["ragged", "offset_window"])
+def test_every_compiled_instance_matches_plain(cuda, instance, case):
+    """Every (dtype, block_q, block_kv, head_dim) the sources compile, at a
+    ragged GQA shape and at a chunked-prefill shape (q after 128 cached keys)
+    under a window; an instance that is not compiled raises and launches
+    nothing.  The library's shared-memory size is the wrapper's table's."""
+    dtype, bq, bk, d = instance
+    b, sq, sk, h, kh, kw = ((2, 77, 77, 4, 2, dict(causal=True)) if case == "ragged" else
+                            (1, 100, 228, 4, 2, dict(causal=True, q_offset=128, window=64)))
+    q, k, v = _qkv(("instance", instance, case), b, sq, sk, h, kh, d, dtype, cuda)
+    if not kernel.compiled(DTYPES[dtype], bq, bk, d):
+        before = kernel.flash_attention.launches
+        with pytest.raises(ValueError, match=f"block_q={bq}, block_kv={bk}"):
+            kernel.flash_attention(q, k, v, block_q=bq, block_kv=bk, **kw)
+        assert kernel.flash_attention.launches == before
+        return
+    want = kernel.smem_bytes(DTYPES[dtype], bq, bk, d)
+    assert kernel.library_smem_bytes(DTYPES[dtype], bq, bk, d) == want
+    got = kernel.flash_attention(q, k, v, block_q=bq, block_kv=bk, **kw)
+    _close(got, ref.naive_attention(q, k, v, **kw), dtype)
+
+
+TC_SERVED = {            # (b, sq, sk, h, k, d), attention keywords
+    "olmo_s1024": ((1, 1024, 1024, 16, 16, 128), dict(causal=True)),
+    "olmo_ragged_s1000": ((1, 1000, 1000, 16, 16, 128), dict(causal=True)),
+    "olmo_window48": ((1, 300, 300, 16, 16, 128), dict(causal=True, window=48)),
+    "olmo_q_offset": ((1, 100, 228, 16, 16, 128), dict(causal=True, q_offset=128)),
+    "olmo_not_causal": ((1, 200, 300, 16, 16, 128), dict(causal=False)),
+    "hymba_s1024": ((1, 1024, 1024, 25, 5, 64), dict(causal=True, window=2048)),
+    "hymba_window300": ((1, 1024, 1024, 25, 5, 64), dict(causal=True, window=300)),
+    "hymba_ragged_q_offset": ((2, 37, 165, 25, 5, 64), dict(causal=True, q_offset=128)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TC_SERVED)
+@pytest.mark.parametrize("block_q", kernel.TILES)
+@pytest.mark.parametrize("block_kv", kernel.TILES)
+def test_tensor_core_kernel_at_the_served_shapes(cuda, name, block_q, block_kv):
+    """The bf16 tensor-core path at OLMo-1B's and hymba-1.5b's widths:
+    causal, sliding window, q_offset, ragged, and no mask at all."""
+    (b, sq, sk, h, kh, d), kw = TC_SERVED[name]
+    q, k, v = _qkv(("served", name), b, sq, sk, h, kh, d, "bfloat16", cuda)
+    got = kernel.flash_attention(q, k, v, block_q=block_q, block_kv=block_kv, **kw)
+    _close(got, ref.naive_attention(q, k, v, **kw), "bfloat16")
 
 
 @pytest.mark.cuda
@@ -127,9 +185,12 @@ def test_ops_dispatch_launches_the_kernel_and_counts(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["float16", "head_dim", "strided", "gqa", "tile"])
-def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
-    q, k, v = _qkv("bad", 1, 8, 8, 4, 2, 32, "bfloat16", cuda)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bad", ["float16", "head_dim", "strided", "gqa", "tile", "misaligned"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad, dtype):
+    """No fallback: a call a kernel cannot take raises before any launch,
+    for the bf16 tensor-core kernel as for the f32 one."""
+    q, k, v = _qkv("bad", 1, 8, 8, 4, 2, 32, dtype, cuda)
     kw = {}
     if bad == "float16":
         q, k, v = q.half(), k.half(), v.half()
@@ -139,8 +200,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     elif bad == "gqa":
         q = q[:, :, :3].contiguous()
+    elif bad == "tile":
+        kw = {"block_q": 32}
     else:
-        kw = {"block_q": 128}
+        q = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
     before = kernel.flash_attention.launches
     with pytest.raises(ValueError):
         kernel.flash_attention(q, k, v, **kw)
