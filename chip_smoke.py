@@ -12,8 +12,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                      ``build/kernels/``, one ``nvcc`` per source, all at once;
                      print each library's nvcc wall time, registers, spills
                      and shared memory, and count the tensor-core
-                     instructions (``HGMMA``) in the SASS of every instance
-                     of ``flash_attention_tc`` (``cuobjdump``): none fails.
+                     instructions in the SASS (``cuobjdump``) of every
+                     instance of ``flash_attention_tc`` (``HGMMA``) and of
+                     every ``ssd_tc`` pass that computes a product
+                     (``HMMA``): none may have none.
   3. kernels       — each kernel against its plain PyTorch version on the
                      card, at the main paths' shapes and at edge shapes,
                      bf16 and float32: flash attention (GQA, window,
@@ -21,7 +23,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                      at every tile pair compiled for the dtype; the
                      libraries' shared-memory tables against the
                      wrapper's), the SSD scan at both
-                     compiled chunks (y and the final state; mamba2's and
+                     compiled chunks, bf16 through ``ssd_tc`` and float32
+                     through ``ssd`` (y and the final state; mamba2's and
                      hymba's prefill widths 2…1024, the grid's b2s512h48,
                      G = 2, non-pow2 S) and RMSNorm (tests/test_kernels.py's
                      shapes, the served widths 1536 and 1600 at 8…16384
@@ -53,7 +56,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                      the calls queued behind a device-side hold so the
                      card runs them back to back); beside the card's bound
                      for the work.  Flash attention at OLMo-1B's and
-                     hymba-1.5b's widest prefill and the grid's four shapes.
+                     hymba-1.5b's widest prefill and the grid's four shapes;
+                     the SSD scan (bf16) at mamba2-780m's and hymba-1.5b's
+                     widest prefill and the grid's two shapes, and the
+                     float32 FMA kernel at mamba2-780m's.
   9. profile       — the OLMo-1B and mamba2-780m serves again, warm: tokens/s
                      and p50, then under torch.profiler the device's busy
                      share and top kernels.
@@ -167,7 +173,9 @@ def phase_card() -> str:
 
 # -------------------------------------------------------------------- build
 FA_TC = "flash_attention_tc"
-CUDA_SOURCES = ["flash_attention", FA_TC, "ssd", "rmsnorm"]
+SSD_TC = "ssd_tc"
+SSD_TC_PRODUCTS = ("ssd_tc_states_kernel", "ssd_tc_scan_kernel")   # the passes with a product
+CUDA_SOURCES = ["flash_attention", FA_TC, "ssd", SSD_TC, "rmsnorm"]
 
 
 def _ptxas_report(log: str) -> list:
@@ -217,6 +225,7 @@ def phase_build() -> dict:
     bf16 attention kernel's products run on the tensor cores."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
 
     t0 = time.perf_counter()
     libs = build.build(CUDA_SOURCES)
@@ -257,6 +266,26 @@ def phase_build() -> dict:
     info[FA_TC]["hgmma_per_instance"] = [min(hgmma), max(hgmma)]
     info[FA_TC]["sass_instructions"] = [min(c for _, c in sass.values()),
                                         max(c for _, c in sass.values())]
+
+    sass = _sass_counts(libs[SSD_TC], "HMMA")
+    report = {fn: (r, sp) for fn, r, sp in _ptxas_report(libs[SSD_TC].with_name(
+        libs[SSD_TC].name + ".log").read_text())}
+    products = {fn: c for fn, c in sass.items() if any(k in fn for k in SSD_TC_PRODUCTS)}
+    for fn, (n, size) in sass.items():
+        name = next((k for k in (*SSD_TC_PRODUCTS, "ssd_tc_pass_kernel") if k in fn), fn)
+        inst = "/".join(re.findall(r"Li(\d+)E", fn))               # <Q, N[, P]> of the mangled name
+        regs, spill = report.get(fn, ("?", "?"))
+        print(f"build: {SSD_TC} {name}" + (f" <{inst}>" if inst else "") + f" SASS: {n:3d} HMMA "
+              f"of {size} instructions, {regs} registers, {spill} bytes spilled")
+    hmma = [n for n, _ in products.values()]
+    # a chunk-state instance per (chunk, state dim), a scan instance per (chunk, state dim, P)
+    want = len(ssd_kernel.CHUNKS) * len(ssd_kernel.STATE_DIMS) * (1 + len(ssd_kernel.TC_HEAD_DIMS))
+    if len(products) != want or min(hmma) == 0:
+        raise AssertionError(f"an ssd_tc product instance has no HMMA in its SASS (or one of "
+                             f"the {want} is missing): {products}")
+    info[SSD_TC]["hmma_per_instance"] = [min(hmma), max(hmma)]
+    info[SSD_TC]["sass_instructions"] = [min(c for _, c in sass.values()),
+                                         max(c for _, c in sass.values())]
     return info
 
 
@@ -356,8 +385,9 @@ def phase_kernels_ssd(device) -> dict:
                 worst = max(worst, err.max().item())
                 state_worst = max(state_worst, serr.max().item())
         errs[str(dtype).replace("torch.", "")] = worst
-        print(f"kernels: ssd vs ssd_chunked, {dtype}: {len(SSD_CASES)} cases x chunks "
-              f"{kernel.CHUNKS}, max abs err y {worst:.3g} (tol {tol:.3g} abs + rel)")
+        print(f"kernels: ssd ({kernel.SOURCES[dtype]}) vs ssd_chunked, {dtype}: "
+              f"{len(SSD_CASES)} cases x chunks {kernel.CHUNKS}, max abs err y {worst:.3g} "
+              f"(tol {tol:.3g} abs + rel)")
     print(f"kernels: ssd final state (f32), max abs err {state_worst:.3g} "
           f"(tol {SSD_STATE_TOL} abs + rel)")
     return {"y": errs, "state": state_worst}
@@ -627,9 +657,11 @@ def phase_model(device, name: str) -> float:
 
 
 # ------------------------------------------------------------------ profile
-# kernel → a part of its device-side name (csrc/*.cu)
-PORT_KERNELS = {"flash_attention": "flash_attention_", "ssd": "ssd_fwd_kernel",
-                "rmsnorm": "rmsnorm_fwd_kernel"}
+# kernel → the parts of its device-side names (csrc/*.cu): every pass of ssd_tc
+PORT_KERNELS = {"flash_attention": ("flash_attention_",),
+                "ssd": ("ssd_fwd_kernel", "ssd_tc_states_kernel", "ssd_tc_pass_kernel",
+                        "ssd_tc_scan_kernel"),
+                "rmsnorm": ("rmsnorm_fwd_kernel",)}
 
 
 def _busy_us(intervals) -> float:
@@ -681,8 +713,8 @@ def phase_profile(device, serve: dict, card: str, top: int = 8) -> None:
           f"(idle share {1 - busy / window:.3f}, profiler on), {len(kernels)} device ops")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"{tag}: {us / total:6.3f} of device time, {us / 1e3:8.2f} ms  {name[:90]}")
-    for kernel, marker in PORT_KERNELS.items():
-        us = sum(t for name, t in by_name.items() if marker in name)
+    for kernel, markers in PORT_KERNELS.items():
+        us = sum(t for name, t in by_name.items() if any(m in name for m in markers))
         print(f"{tag}: the port's {kernel} kernel: {us / total:.4f} of device time, "
               f"{us / 1e3:.2f} ms")
 
@@ -700,19 +732,31 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int = 20) -> tuple:
-    """Device time of one call of ``fn`` under torch.profiler (the sum of
-    its kernels, host gaps left out) and the kernels a call launches."""
+def _kernels_us(fn, reps: int = 20) -> dict:
+    """Device kernel name → (µs, launches) a call of ``fn()``, under
+    torch.profiler (host gaps left out; device activity only: with CPU
+    activity too, a process's first profile recorded no device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps, len(kernels) // reps
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (us + e.time_range.elapsed_us() / reps, n + 1)
+    return {name: (us, n // reps) for name, (us, n) in out.items()}
+
+
+def _device_ms(fn, reps: int = 20) -> tuple:
+    """Device time of one call of ``fn`` (the sum of its kernels) and the
+    kernels a call launches."""
+    kernels = _kernels_us(fn, reps).values()
+    return sum(us for us, _ in kernels) / 1e3, sum(n for _, n in kernels)
 
 
 def _both_ms(fn, *tensors, reps: int = 20) -> tuple:
@@ -796,19 +840,51 @@ def ssd_bound_ms(b: int, s: int, h: int, p: int, n: int, g: int, elem_bytes: int
     return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
 
 
+# name: (batch, seq, heads, head_dim, state, groups), bf16, chunk 64
+SSD_TIMED = {
+    "mamba2-780m prefill": (1, 1024, 48, 64, 128, 1),
+    "hymba-1.5b prefill": (1, 1024, 25, 128, 16, 1),
+    "grid b1s256h48": (1, 256, 48, 64, 128, 1),
+    "grid b2s512h48": (2, 512, 48, 64, 128, 1),
+}
+
+
 def phase_timing_ssd(device) -> dict:
+    """The SSD kernel (bf16: ``ssd_tc``) and its plain version at each
+    SSD_TIMED shape, and the float32 FMA kernel (``ssd``) at mamba2-780m's,
+    on both yardsticks; the first shape is the kernel's headline row.  No
+    PyTorch call computes SSD."""
     from repro_torch.kernels.ssd import kernel, ref
 
-    case = (1, 1024, 48, 64, 128, 1)
-    t = _ssd_inputs(case, torch.bfloat16, device, seed=8)
     n0 = kernel.ssd.launches
-    kernel_ms, kernel_dev = _both_ms(lambda *a: kernel.ssd(*a, chunk=64, return_state=True), *t)
-    plain_ms, plain_dev = _both_ms(lambda *a: ref.ssd_chunked(*a, chunk=64, return_state=True), *t)
+    rows = {}
+    timed = [(name, case, torch.bfloat16) for name, case in SSD_TIMED.items()]
+    timed.append(("mamba2-780m prefill f32", SSD_TIMED["mamba2-780m prefill"], torch.float32))
+    for name, case, dtype in timed:
+        t = _ssd_inputs(case, dtype, device, seed=8)
+        ms, ms_dev = _both_ms(lambda *a: kernel.ssd(*a, chunk=64, return_state=True), *t)
+        plain, plain_dev = _both_ms(
+            lambda *a: ref.ssd_chunked(*a, chunk=ref.align_chunk(64, case[1]), return_state=True),
+            *t)
+        elem, peak = (2, PEAK_BF16_FLOPS) if dtype == torch.bfloat16 else (4, PEAK_F32_FLOPS)
+        bound_ms, bound_by = ssd_bound_ms(*case, elem, 64, peak)
+        b, s, h, p, n, g = case
+        rows[name] = {"shape": f"{'bf16' if elem == 2 else 'f32'} B{b} S{s} H{h} P{p} N{n} G{g}",
+                      "source": kernel.SOURCES[dtype], "ms": ms, "ms_device": ms_dev,
+                      "plain_ms": plain, "plain_ms_device": plain_dev, "library_ms": None,
+                      "library_ms_device": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"timing: ssd ({kernel.SOURCES[dtype]}) {rows[name]['shape']} chunk 64 ({name}), "
+              f"events / device-held: kernel {ms:.4f} / {ms_dev:.4f} ms, plain ssd_chunked "
+              f"{plain:.4f} / {plain_dev:.4f} ms, no library call computes SSD, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        if dtype == torch.bfloat16:   # each pass of ssd_tc (the scan overlaps pass 2's end)
+            passes = {next(m for m in PORT_KERNELS["ssd"] if m in k): us for k, (us, _) in
+                      _kernels_us(lambda: kernel.ssd(*t, chunk=64), reps=10).items()}
+            rows[name]["passes_us"] = passes
+            print(f"timing: ssd ({kernel.SOURCES[dtype]}) {name}, per pass (profiler, kernel "
+                  "durations): " + (", ".join(f"{k} {us:.1f} us" for k, us in passes.items())
+                                    or "the profiler recorded no device activity"))
     kernel.ssd.launches = n0                 # timing launches are not the main path's
-    bound_ms, bound_by = ssd_bound_ms(*case, 2, 64, PEAK_BF16_FLOPS)
-    print(f"timing: ssd bf16 B1 S1024 H48 P64 N128 G1, events / device-held: kernel "
-          f"{kernel_ms:.4f} / {kernel_dev:.4f} ms, plain ssd_chunked {plain_ms:.4f} / "
-          f"{plain_dev:.4f} ms, no library call computes SSD, bound {bound_ms:.4f} ms ({bound_by})")
 
     # the plain one-token update at the mamba2 serve's decode shape (8 slots):
     # its f32 state must at least be read and written once a layer.  Events
@@ -824,9 +900,7 @@ def phase_timing_ssd(device) -> dict:
           f"by events (host dispatch included), {decode_device_ms:.4f} ms of device kernels "
           f"({decode_ops} kernels); x 48 layers {48 * decode_device_ms:.4f} ms of device time "
           f"a decode step; bound (state read + written once) {decode_bound_ms:.4f} ms a layer")
-    return {"ms": kernel_ms, "ms_device": kernel_dev, "plain_ms": plain_ms,
-            "plain_ms_device": plain_dev, "library_ms": None, "library_ms_device": None,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return {**rows["mamba2-780m prefill"], "shapes": rows}
 
 
 def rmsnorm_bound_ms(rows: int, d: int, elem_bytes: int, scale_bytes: int,
@@ -1052,9 +1126,11 @@ def main() -> int:
               timing["shape"], source_float32="src/repro_torch/csrc/flash_attention.cu",
               shapes=timing["shapes"], build={k: builds[k] for k in ("flash_attention_tc",
                                                                       "flash_attention")}),
-        entry("ssd", "src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:74",
-              ssd_errs["y"], timing_ssd, "bf16 B1 S1024 H48 P64 N128 G1",
-              max_abs_err_state=ssd_errs["state"], build=builds["ssd"]),
+        entry("ssd", "src/repro_torch/csrc/ssd_tc.cu", "src/repro/kernels/ssd/kernel.py:74",
+              ssd_errs["y"], timing_ssd, timing_ssd["shape"] + " chunk 64",
+              source_float32="src/repro_torch/csrc/ssd.cu", shapes=timing_ssd["shapes"],
+              max_abs_err_state=ssd_errs["state"],
+              build={k: builds[k] for k in ("ssd_tc", "ssd")}),
         entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm/kernel.py:33", rms_errs, timing_rms["rmsnorm"],
               "bf16 r16384 d1536, bf16 scale", residual=timing_rms["rmsnorm_res"],

@@ -1,7 +1,11 @@
-// Mamba-2 SSD (state-space duality) chunked scan, forward, for Hopper (sm_90a).
+// Mamba-2 SSD (state-space duality) chunked scan, forward, for Hopper (sm_90a),
+// float32 with exact FMAs.
 //
 // Replaces: src/repro/kernels/ssd/kernel.py:ssd_pallas (the TPU kernel, body
-// `_kernel`).  It computes the function of the plain version
+// `_kernel`) for float32 x, B, C; bfloat16 goes to the tensor-core kernel of
+// ssd_tc.cu (the Python wrapper picks the library by dtype, and this library
+// takes float32 only: the float32 checks need exact f32 products, which
+// TF32 or bf16 tensor cores would break).  It computes the function of the plain version
 // src/repro_torch/kernels/ssd/ref.py:ssd_chunked (the reference's
 // ref.ssd_chunked, the JAX model's default path), from a zero initial state:
 //   x (B,S,H,P) in T, dt (B,S,H) f32 (already softplus'd), A (H,) f32,
@@ -44,7 +48,7 @@
 // at Q 32 61 KB.  The result does not depend on the chunk beyond f32
 // summation order.  Compiled: chunk 32 and 64, N 16 (hymba-1.5b) and 128
 // (mamba2-780m), PS 32 and 16 (head dims that are multiples of 32, and of
-// 16 only), f32 and bf16.
+// 16 only), f32.
 //
 // Thread layout: 256 threads = 16 row groups (ty) x 16 lanes (tx).
 //   scores: rows ty*Q/16 .. +Q/16-1, columns tx + 16c  (Q/16 x Q/16 each)
@@ -56,7 +60,6 @@
 // Entry point: repro_ssd_fwd (plain C, called through ctypes); it launches
 // on the caller's stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,9 +68,7 @@ namespace {
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 template <int Q, int N, int PS>
 struct Layout {
@@ -327,8 +328,8 @@ cudaError_t dispatch(int chunk, int p_slice, int n, const void* x, const float* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, B, C and y).  dt, A, D and the state
-// are float32; D and state may be null.  Tensors are contiguous; the Python
+// dtype must be 0 (float32 x, B, C and y): bfloat16 is ssd_tc.cu's.  dt, A,
+// D and the state are float32; D and state may be null.  Tensors are contiguous; the Python
 // wrapper checks shapes, dtypes and contiguity before the call.
 extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A, const void* Bm,
                              const void* Cm, const void* D, void* y, void* state, int dtype,
@@ -344,7 +345,5 @@ extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A, const
   float* sf = static_cast<float*>(state);
   if (dtype == 0)
     return (int)dispatch<float>(chunk, p_slice, state_dim, x, dtf, af, Bm, Cm, df, y, sf, batch, seq, n_heads, head_dim, n_groups, s);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(chunk, p_slice, state_dim, x, dtf, af, Bm, Cm, df, y, sf, batch, seq, n_heads, head_dim, n_groups, s);
   return (int)cudaErrorInvalidValue;
 }

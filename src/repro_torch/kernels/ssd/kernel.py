@@ -1,16 +1,29 @@
-"""Hopper SSD chunked scan: the wrapper of ``csrc/ssd.cu``.
+"""Hopper SSD chunked scan: the wrapper of the two CUDA sources.
 
-The port of ``repro/kernels/ssd/kernel.py:ssd_pallas``.  The CUDA source
-says what bounds the kernel and how it is laid out; this module checks what
-the kernel takes, allocates y and the final state and launches it on
-PyTorch's current stream through a ``ctypes`` binding of the library that
+The port of ``repro/kernels/ssd/kernel.py:ssd_pallas``.  The dispatch is by
+dtype, here and nowhere else:
+
+  * bfloat16 → ``csrc/ssd_tc.cu``: three launches (chunk states, state
+    passing, chunk scan), every chunk in parallel, the products on the
+    tensor cores (``mma.sync``);
+  * float32 → ``csrc/ssd.cu``: one block walks the chunks with exact f32
+    FMAs, because the float32 checks (4·170·eps on the card, the reduced
+    models against the CPU) need full f32 products that TF32 or bf16
+    tensor cores would break.
+
+Neither is a fallback for the other: each library takes only its dtype.
+The CUDA sources say what bounds each kernel and how it is laid out; this
+module checks what the kernel takes, allocates y, the final state and the
+tensor-core kernel's scratch and launches it on PyTorch's current stream
+through a ``ctypes`` binding of the library that
 :mod:`repro_torch.kernels.build` compiles at first use.
 
 A CPU tensor goes to the plain version, :func:`ref.ssd_chunked`; that is
-the only route to it.  A CUDA tensor launches the kernel or raises.  Unlike
-the Pallas kernel, this one writes the final state it carries (the Pallas
+the only route to it.  A CUDA tensor launches a kernel or raises.  Unlike
+the Pallas kernel, these write the final state they carry (the Pallas
 wrapper recomputes it with the plain version).  ``ssd.launches`` counts
-launches, so a run can show that its prefill went through the kernel.
+wrapper calls that launched (one per call, however many passes), so a run
+can show that its prefill went through the kernels.
 """
 from __future__ import annotations
 
@@ -23,18 +36,24 @@ import torch
 from .. import build
 from . import ref
 
-__all__ = ["ssd", "CHUNKS", "STATE_DIMS"]
+__all__ = ["ssd", "CHUNKS", "STATE_DIMS", "SOURCES", "TC_HEAD_DIMS"]
 
 CHUNKS = (32, 64)              # compiled chunk lengths
 STATE_DIMS = (16, 128)         # the state sizes of hymba-1.5b and mamba2-780m
+SOURCES = {torch.float32: "ssd", torch.bfloat16: "ssd_tc"}
+TC_HEAD_DIMS = (16, 32, 64, 128)   # the head dims ssd_tc's scan pass is compiled for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# tensor arguments before the ints, per source: ssd_tc adds its three scratch buffers
+_POINTERS = {"ssd": 8, "ssd_tc": 11}
+_INTS = {"ssd": 9, "ssd_tc": 8}
 
 
-@functools.lru_cache(maxsize=1)
-def _entry():
-    fn = build.load("ssd").repro_ssd_fwd
+@functools.lru_cache(maxsize=None)
+def _entry(source: str):
+    fn = getattr(build.load(source), f"repro_{source}_fwd")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * _POINTERS[source] + [ctypes.c_int] * _INTS[source]
+                   + [ctypes.c_void_p])
     return fn
 
 
@@ -50,7 +69,7 @@ def _check(x, dt, A, B, C, D, chunk: int) -> None:
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors.values()):
         raise ValueError("ssd kernel needs every tensor on one CUDA device; got "
                          + ", ".join(f"{k} {t.device}" for k, t in tensors.items()))
-    if x.dtype not in _DTYPE_CODE or B.dtype != x.dtype or C.dtype != x.dtype:
+    if x.dtype not in SOURCES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise ValueError(f"ssd kernel takes float32 or bfloat16 x, B, C of one dtype; got "
                          f"{x.dtype}, {B.dtype}, {C.dtype}")
     for k in ("dt", "A", "D"):
@@ -72,6 +91,8 @@ def _check(x, dt, A, B, C, D, chunk: int) -> None:
         raise ValueError(f"state dim {n} not in {STATE_DIMS}")
     if p == 0 or p % 16:
         raise ValueError(f"head_dim {p} is not a multiple of 16")
+    if x.dtype == torch.bfloat16 and p not in TC_HEAD_DIMS:
+        raise ValueError(f"head_dim {p} not in {TC_HEAD_DIMS}: ssd_tc is not compiled for it")
     if s == 0 or b == 0:
         raise ValueError("empty batch or sequence")
     if chunk not in CHUNKS:
@@ -79,6 +100,8 @@ def _check(x, dt, A, B, C, D, chunk: int) -> None:
     for k, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{k} must be contiguous")
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_tc copies x, B and C in 16-byte pieces: they must be 16-byte aligned")
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -87,7 +110,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: 
     """Shapes as :func:`ref.ssd_chunked`; dt, A and D float32.  Returns y
     (B,S,H,P) in x's dtype, and the final state (B,H,P,N) in float32 if
     ``return_state``.  The chunk need not divide S: the kernel masks the
-    ragged last chunk.  The kernel starts from a zero state: a non-zero
+    ragged last chunk.  The kernels start from a zero state: a non-zero
     ``init_state`` raises on the card (no serving path passes one)."""
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, A, B, C, D, chunk=ref.align_chunk(chunk, x.shape[1]),
@@ -101,13 +124,24 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: 
     y = torch.empty_like(x)
     state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
              if return_state else None)
-    err = _entry()(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        D.data_ptr() if D is not None else None, y.data_ptr(),
-        state.data_ptr() if state is not None else None, _DTYPE_CODE[x.dtype],
-        b, s, h, p, g, n, chunk, _p_slice(p), torch.cuda.current_stream(x.device).cuda_stream)
+    source = SOURCES[x.dtype]
+    args = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            D.data_ptr() if D is not None else None, y.data_ptr(),
+            state.data_ptr() if state is not None else None]
+    if source == "ssd_tc":
+        # the passes' scratch, one allocation: the chunk states (f32), the
+        # state entering each chunk (bf16) and each chunk's decay (f32)
+        n_states = b * -(-s // chunk) * h            # one P x N state a (b, chunk, head)
+        elems = n_states * p * n
+        scratch = torch.empty(6 * elems + 4 * n_states, dtype=torch.uint8, device=x.device)
+        base = scratch.data_ptr()
+        args += [base, base + 4 * elems, base + 6 * elems]
+    args += [_DTYPE_CODE[x.dtype], b, s, h, p, g, n, chunk]
+    if source == "ssd":
+        args.append(_p_slice(p))
+    err = _entry(source)(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd kernel ({source}) launch failed: CUDA error {err}")
     ssd.launches += 1
     return (y, state) if return_state else y
 

@@ -11,6 +11,10 @@ head-dim p and state-dim n:
     quadratic intra-chunk term plus an inter-chunk state recurrence.  The
     model's plain path and the plain version of the Hopper kernel
     (``kernel.py``).
+  * :func:`ssd_passes`      — the same function through the bf16 Hopper
+    kernel's three passes (``csrc/ssd_tc.cu``): chunk states, state passing,
+    chunk scan; optionally rounding where the kernel rounds.  A CPU model of
+    the kernel for the tests, on no serving path.
   * :func:`ssd_decode_step` — the one-token recurrent update for serving.
 
 Shapes: x (B,S,H,P); dt (B,S,H); A (H,); B/C (B,S,G,N) with H % G == 0 (head
@@ -29,7 +33,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ssd_naive_scan", "ssd_chunked", "ssd_decode_step", "align_chunk"]
+__all__ = ["ssd_naive_scan", "ssd_chunked", "ssd_passes", "ssd_decode_step", "align_chunk"]
 
 
 def align_chunk(chunk: int, seq: int) -> int:
@@ -107,6 +111,72 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
             "bjh,bjh,bjhn,bjhp->bhpn", decay_out, dtc, bc, xc)
         ys.append(y_intra + y_inter)
     y = _with_d(torch.cat(ys, dim=1), D, xf).to(x.dtype)
+    return (y, state) if return_state else y
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def ssd_passes(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, D: Optional[torch.Tensor] = None, chunk: int = 64,
+               kernel_rounding: bool = False, return_state: bool = False):
+    """SSD from a zero state through ``csrc/ssd_tc.cu``'s three passes.
+
+    1. chunk states ``S_c = Σ_j (x_j w_j) ⊗ B_j``, ``w_j = exp(cs_last −
+       cs_j) dt_j``, with every chunk independent;
+    2. state passing: ``in_c = state; state = exp(cs_last) state + S_c``;
+    3. chunk scan: ``y_i = Σ_{j≤i} M_ij x_j + exp(cs_i) C_i · in_c + D x_i``
+       with ``M = C·Bᵀ ∘ exp(cs_i − cs_j) ∘ dt_j``.
+
+    The chunk need not divide S: the ragged last chunk is padded with zeros
+    (dt = 0 keeps the cumsum flat), as the kernel masks it.  With
+    ``kernel_rounding`` the products' operands are rounded where the kernel
+    rounds them: the scaled ``x w`` of pass 1 is split into a bf16 high and
+    a bf16 low part (both multiplied), and M and ``in_c`` are rounded once to
+    bf16; every sum stays float32.  Without it everything is float32."""
+    b, s, h, p = x.shape
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t):  # (b, s, ...) -> (b, nc, chunk, ...), zero-padded
+        t = t.float()
+        t = torch.cat([t, t.new_zeros((b, pad, *t.shape[2:]))], dim=1) if pad else t
+        return t.reshape(b, nc, chunk, *t.shape[2:])
+
+    xf, dtf = chunks(x), chunks(dt)                       # (b,c,Q,h,p), (b,c,Q,h)
+    Bh, Ch = chunks(_expand_groups(B, h)), chunks(_expand_groups(C, h))   # (b,c,Q,h,n)
+    cs = torch.cumsum(dtf * A.float(), dim=2)             # inclusive, per chunk
+    total = cs[:, :, -1]                                  # (b,c,h)
+
+    # 1. chunk states
+    xw = xf * (torch.exp(total[:, :, None] - cs) * dtf)[..., None]
+    if kernel_rounding:
+        hi = _bf16(xw)
+        parts = (hi, _bf16(xw - hi))
+    else:
+        parts = (xw,)
+    states = sum(torch.einsum("bcjhp,bcjhn->bchpn", part, Bh) for part in parts)
+
+    # 2. state passing
+    state = torch.zeros_like(states[:, 0])
+    ins = []
+    for c in range(nc):
+        ins.append(state)
+        state = torch.exp(total[:, c])[..., None, None] * state + states[:, c]
+    ins = torch.stack(ins, dim=1)                          # (b,c,h,p,n)
+
+    # 3. chunk scan
+    iq = torch.arange(chunk, device=x.device)
+    causal = (iq[:, None] >= iq[None, :])[:, :, None]      # (Q, Q, 1)
+    li = cs[:, :, :, None, :] - cs[:, :, None, :, :]       # (b,c,Q,Q,h)
+    M = (torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
+         * torch.exp(torch.where(causal, li, float("-inf"))) * dtf[:, :, None])
+    if kernel_rounding:
+        M, ins = _bf16(M), _bf16(ins)
+    y = (torch.einsum("bcijh,bcjhp->bcihp", M, xf)
+         + torch.exp(cs)[..., None] * torch.einsum("bcihn,bchpn->bcihp", Ch, ins))
+    y = _with_d(y.reshape(b, nc * chunk, h, p)[:, :s], D, x.float()).to(x.dtype)
     return (y, state) if return_state else y
 
 

@@ -9,6 +9,7 @@ import importlib.util
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -81,6 +82,18 @@ def test_the_tensor_core_attention_is_covered():
     for name in kernel.SOURCES.values():
         assert (PORT / "csrc" / f"{name}.cu").exists()
     assert (PORT / "csrc" / "flash_attention_tc.cu").read_text().count("wgmma.mma_async") >= 2
+
+
+def test_the_tensor_core_ssd_is_covered():
+    """The bf16 SSD source and its wrapper are among what the checks here
+    walk, the wrapper names a library for each dtype it takes, and the
+    bf16 one runs its products as mma.sync."""
+    from repro_torch.kernels.ssd import kernel
+
+    assert kernel.SOURCES == {torch.float32: "ssd", torch.bfloat16: "ssd_tc"}
+    for name in kernel.SOURCES.values():
+        assert (PORT / "csrc" / f"{name}.cu").exists()
+    assert (PORT / "csrc" / "ssd_tc.cu").read_text().count("mma.sync.aligned.m16n8k16") == 1
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -219,3 +232,30 @@ def test_chip_smoke_times_every_attention_shape_it_names(chip_smoke):
             if h == campaign.ATTN_HEADS}
     assert set(campaign.GRIDS["kernels"]["torch_flash_attention"]) <= grid
     assert all(w == 0 or w >= s for _, s, _, _, _, w in shapes.values())
+
+
+def test_chip_smoke_times_every_ssd_shape_it_names(chip_smoke):
+    """mamba2-780m's and hymba-1.5b's widest prefill and the campaign grid's
+    two SSD workloads (mamba2 heads)."""
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.launch import campaign
+
+    shapes = chip_smoke.SSD_TIMED
+    assert shapes["mamba2-780m prefill"] == (1, 1024, 48, 64, 128, 1)
+    assert shapes["hymba-1.5b prefill"] == (1, 1024, 25, 128, 16, 1)
+    grid = {ops.workload_signature(b, s, h) for b, s, h, _, _, _ in shapes.values()}
+    assert set(campaign.GRIDS["kernels"]["torch_ssd_kernel"]) <= grid
+
+
+def test_chip_smoke_names_every_ssd_kernel(chip_smoke):
+    """The profile sums every device kernel of both SSD sources, and the
+    build phase's tensor-core check names the passes that compute a product."""
+    from repro_torch.kernels.ssd import kernel
+
+    sources = {name: (PORT / "csrc" / f"{name}.cu").read_text()
+               for name in kernel.SOURCES.values()}
+    kernels = {k for text in sources.values() for k in re.findall(r"\b(ssd\w*_kernel)\(", text)}
+    assert kernels == set(chip_smoke.PORT_KERNELS["ssd"])
+    assert set(chip_smoke.SSD_TC_PRODUCTS) < kernels
+    assert all(k in sources["ssd_tc"] for k in chip_smoke.SSD_TC_PRODUCTS)
+    assert chip_smoke.SSD_TC in chip_smoke.CUDA_SOURCES

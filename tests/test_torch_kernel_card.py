@@ -1,7 +1,8 @@
 """The port's Hopper kernels on the card, against their plain versions:
 flash attention (``csrc/flash_attention_tc.cu`` for bfloat16, on the tensor
 cores; ``csrc/flash_attention.cu`` for float32), the SSD scan
-(``csrc/ssd.cu``, both compiled chunks) and row RMSNorm
+(``csrc/ssd_tc.cu`` for bfloat16, three passes on the tensor cores;
+``csrc/ssd.cu`` for float32; both compiled chunks) and row RMSNorm
 (``csrc/rmsnorm.cu``).
 
 Every test here needs an NVIDIA GPU and ``nvcc`` (the kernels are built at
@@ -259,6 +260,61 @@ def test_ssd_kernel_matches_plain(cuda, dtype, shape, chunk):
     _ssd_close(got, want, dtype)
 
 
+# (b, s, h, p, n, g): S = 2 (one short chunk) and S = 300 (a ragged last
+# chunk) at head counts that ssd_tc's head block of 4 does not divide (25, 7)
+# and does (48); the batches are large enough that the launch takes that head
+# block at both chunks on a 132-SM card, so the last block of each group is ragged
+SSD_EDGE_SHAPES = [
+    (20, 2, 25, 128, 16, 1),
+    (8, 300, 25, 128, 16, 1),
+    (66, 2, 7, 32, 128, 1),
+    (16, 300, 7, 32, 128, 1),
+    (1, 2, 48, 64, 128, 1),
+    (1, 300, 48, 64, 128, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SSD_EDGE_SHAPES)
+@pytest.mark.parametrize("chunk", ssd_kernel.CHUNKS)
+def test_ssd_kernel_short_ragged_and_a_ragged_head_block(cuda, dtype, shape, chunk):
+    t = _ssd_inputs(("edge", shape, dtype), *shape, dtype, cuda)
+    got = ssd_kernel.ssd(*t, chunk=chunk, return_state=True)
+    want = ssd_ref.ssd_chunked(*t, chunk=ssd_ref.align_chunk(64, shape[1]), return_state=True)
+    _ssd_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_wrapper_sends_each_dtype_to_its_own_library(cuda, dtype, monkeypatch):
+    """bfloat16 launches ssd_tc, float32 ssd; each library refuses the other
+    dtype (cudaErrorInvalidValue, nothing launched): neither is a fallback."""
+    t = _ssd_inputs(("route", dtype), 1, 100, 8, 64, 128, 1, dtype, cuda)
+    used, real = [], ssd_kernel._entry
+    monkeypatch.setattr(ssd_kernel, "_entry", lambda source: used.append(source) or real(source))
+    got = ssd_kernel.ssd(*t, return_state=True)
+    assert used == [{"bfloat16": "ssd_tc", "float32": "ssd"}[dtype]]
+    _ssd_close(got, ssd_ref.ssd_chunked(*t, chunk=50, return_state=True), dtype)
+    other = "ssd" if used[0] == "ssd_tc" else "ssd_tc"
+    code = {"bfloat16": 1, "float32": 0}[dtype]
+    n_ptr = {"ssd": 8, "ssd_tc": 11}[other]
+    tail = [code, 1, 100, 8, 64, 1, 128, 64] + ([32] if other == "ssd" else [])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert real(other)(*([None] * n_ptr), *tail, stream) == 1   # cudaErrorInvalidValue
+
+
+@pytest.mark.cuda
+def test_ssd_tc_call_adds_one_launch(cuda):
+    """ssd_tc launches three CUDA kernels a call; ``ssd.launches`` counts the
+    call once, so a prefill adds one per layer."""
+    t = _ssd_inputs("count", 1, 300, 25, 128, 16, 1, "bfloat16", cuda)
+    before = ssd_kernel.ssd.launches
+    got = ssd_kernel.ssd(*t, chunk=64, return_state=True)
+    assert ssd_kernel.ssd.launches == before + 1
+    _ssd_close(got, ssd_ref.ssd_chunked(*t, chunk=4, return_state=True), "bfloat16")
+
+
 @pytest.mark.cuda
 def test_ssd_kernel_without_d_or_state(cuda):
     t = _ssd_inputs("no_d", 1, 100, 4, 32, 128, 1, "float32", cuda)
@@ -290,7 +346,7 @@ def test_ssd_ops_dispatch_launches_the_kernel_and_counts(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["float16", "state_dim", "head_dim", "strided", "groups",
-                                 "dt_dtype", "chunk", "init_state"])
+                                 "dt_dtype", "chunk", "init_state", "tc_head_dim", "unaligned"])
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
     x, dt, A, B, C, D = _ssd_inputs("ssd_bad", 1, 16, 4, 32, 16, 2, "bfloat16", cuda)
     kw = {}
@@ -308,6 +364,10 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
         dt = dt.to(torch.bfloat16)
     elif bad == "chunk":
         kw = {"chunk": 128}
+    elif bad == "tc_head_dim":    # ssd_tc is compiled for head dims 16, 32, 64, 128
+        x = torch.zeros((1, 16, 4, 48), dtype=x.dtype, device=cuda)
+    elif bad == "unaligned":      # ssd_tc copies x in 16-byte pieces
+        x = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
     else:
         kw = {"init_state": torch.ones((1, 4, 32, 16), device=cuda)}
     before = ssd_kernel.ssd.launches
