@@ -18,8 +18,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                      (``HMMA``): none may have none.
   3. kernels       — each kernel against its plain PyTorch version on the
                      card, at the main paths' shapes and at edge shapes,
-                     bf16 and float32: flash attention (GQA, window,
-                     q_offset, non-pow2; the campaign grid's four shapes
+                     bf16 and float32: flash attention (every prefill
+                     shape the serving phases give it: OLMo-1B's and
+                     hymba-1.5b's widths, OLMo-1B's 4-row gang prefills,
+                     reduced OLMo-1B's GQA 4->2 at head dim 16; GQA,
+                     window, q_offset, non-pow2; the campaign grid's four shapes
                      at every tile pair compiled for the dtype; the
                      libraries' shared-memory tables against the
                      wrapper's), the SSD scan at both
@@ -70,8 +73,39 @@ Phases, in order; any failure exits non-zero before the result lines:
                      filed under this card, each kernel launched, a rerun
                      under the same id resumes with no measurement, and the
                      ops resolve and launch what was promoted.
+ 11. online        — the live server tuned on the card: full-width OLMo-1B
+                     (the serve phase's bf16 weights), capacity 2048, at the
+                     online benchmark's stale settings (``sync_interval``
+                     16), serving the post-shift ``traffic.drifting`` slice
+                     through the online benchmark's adapt phase
+                     (``repro_torch.bench.online_tuning.adapt``: an
+                     ``OnlineTuner``, ``rs``, 3 canaries x 4 window pairs;
+                     with 3 the permutation test cannot reach its 0.1)
+                     until a challenger promotes or the budget is spent;
+                     every journal
+                     transition, the promotions, rollbacks and what
+                     ``config.resolve`` returns are printed.  Fails on a
+                     malformed journal row, attention launches other than
+                     prefills x 16, a host fetch outside the one per sync, a
+                     resumed tuner that does not restore the champion and
+                     the budget, or a resolve that misses a promotion.  Then
+                     reduced OLMo-1B in float32 with the tuner in the loop
+                     must give the one-at-a-time streams (near-ties aside).
+ 12. serve-bench   — ``repro_torch.bench.serve_scenarios`` at full-width
+                     OLMo-1B, bf16, capacity 2048, heavy tail only: one
+                     warm-up and 5 timed replays per scheduler, records into
+                     a temporary trajectory; medians of tokens/s, p50 and
+                     p99, the continuous-vs-gang verdict (printed, not
+                     gated; equal token totals gated) and the idle share of
+                     one more continuous replay under the profiler.
+ 13. serving-grid  — the ``serving`` campaign grid on the card (reduced
+                     OLMo-1B, bf16, bo budget 3) into a temporary store:
+                     every cell done, every entry filed under this card, a
+                     rerun under the same id measures nothing.
 
-The last two lines of standard output are the ``kernels`` JSON line and
+Phases 11-13 run after the campaign phase, before the profiles.  Each phase
+from 11 on prints its wall time, and the script prints its total before the
+last two lines of standard output: the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The port imports no jax and nothing of
 the reference package, and neither does this script.
 """
@@ -105,6 +139,10 @@ ATTN_CASES = [
     *((1, w, w, 16, 16, 128, 0, 0) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
     # hymba-1.5b prefill shapes: GQA 25->5, head_dim 64, window 2048 (wider than any prompt)
     *((1, w, w, 25, 5, 64, 2048, 0) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
+    # OLMo-1B gang prefills (serve-bench): max_batch 4 rows at every pow2 heavy-tail width
+    *((4, w, w, 16, 16, 128, 0, 0) for w in (2, 4, 8, 16, 32, 64)),
+    # reduced OLMo-1B prefills (serving grid, f32 parity phases): GQA 4->2, head_dim 16
+    *((1, w, w, 4, 2, 16, 0, 0) for w in (2, 4, 8, 16, 32)),
     (2, 256, 256, 32, 8, 128, 0, 0),      # GQA
     (1, 300, 300, 16, 16, 128, 48, 0),    # sliding window
     (1, 100, 228, 8, 8, 64, 0, 128),      # q_offset > 0 (chunked prefill)
@@ -488,6 +526,51 @@ def smoke_arrivals(seed: int, n: int, vocab: int, max_width: int, long_max: int,
     return arrivals
 
 
+class _FetchCounter:
+    """Stands in for ``serve_loop._host_fetch``: counts the fetches and the
+    decode steps each one carries (a continuous sync fetches one row per
+    step)."""
+
+    def __init__(self):
+        from repro_torch.runtime import serve_loop
+
+        self.module, self.real, self.rows = serve_loop, serve_loop._host_fetch, []
+
+    def __call__(self, x):
+        self.rows.append(int(x.shape[0]))
+        return self.real(x)
+
+    def __enter__(self):
+        self.module._host_fetch = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module._host_fetch = self.real
+
+
+def _divergences(srv, params, cfg, arrivals, capacity: int, device) -> list:
+    """The same requests one at a time (gang mode at batch 1, each at its
+    own prompt width: a wider gang batch pads every member to its widest),
+    against ``srv``'s streams: the first differing step of each request
+    that differs, with the top-2 logit gap there."""
+    from repro_torch.runtime import serve_loop, traffic
+
+    gang = serve_loop.BatchedServer(params, cfg, capacity=capacity, eos_id=-1, mode="gang",
+                                    settings={"max_batch": 1}, device=device)
+    traffic.replay(gang, arrivals)
+    cont_s, gang_s = _streams(srv), _streams(gang)
+    out = []
+    for rid, a in enumerate(arrivals):
+        s_c, s_g = cont_s[rid], gang_s[rid]
+        if s_c == s_g:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(s_c, s_g)) if x != y)
+        gap = _top2_gap(params, cfg, a.prompt, srv._width_of(len(a.prompt)), s_c[:t],
+                        capacity, device)
+        out.append({"rid": rid, "step": t, "top2_gap": gap})
+    return out
+
+
 def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: int,
                     max_width: int, seed: int = SEED, long_max: int = 64,
                     init_seed: int = 0, widths: Optional[list] = None) -> dict:
@@ -503,15 +586,7 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
     gen = torch.Generator(device=device).manual_seed(init_seed)
     params = M.init_params(cfg, gen, device=device)
     arrivals = smoke_arrivals(seed, n_requests, cfg.vocab_size, max_width, long_max, widths)
-    fetches = {"n": 0}
-    real_fetch = serve_loop._host_fetch
-
-    def counted_fetch(x):
-        fetches["n"] += 1
-        return real_fetch(x)
-
-    serve_loop._host_fetch = counted_fetch
-    try:
+    with _FetchCounter() as fetches:
         srv = serve_loop.BatchedServer(params, cfg, capacity=capacity, eos_id=-1,
                                        mode="continuous", settings={"max_batch": max_batch},
                                        device=device)
@@ -525,9 +600,7 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in kernels.items()}
-        fetches_continuous = fetches["n"]
-    finally:
-        serve_loop._host_fetch = real_fetch
+    fetches_continuous = len(fetches.rows)
 
     widths = [srv._width_of(len(a.prompt)) for a in arrivals]
     for a, r in zip(arrivals, (srv.results[i] for i in range(len(arrivals)))):
@@ -545,20 +618,7 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
         raise AssertionError(f"kernel launches {launches} for {srv.prefill_calls} prefills x "
                              f"{cfg.n_layers} layers of {cfg.family}; expected {expected}")
 
-    # gang at batch 1 is the sequential reference: each request alone, at its
-    # own prompt width (a wider gang batch pads every member to its widest)
-    gang = serve_loop.BatchedServer(params, cfg, capacity=capacity, eos_id=-1, mode="gang",
-                                    settings={"max_batch": 1}, device=device)
-    traffic.replay(gang, arrivals)
-    cont_s, gang_s = _streams(srv), _streams(gang)
-    divergences = []
-    for rid, a in enumerate(arrivals):
-        s_c, s_g = cont_s[rid], gang_s[rid]
-        if s_c == s_g:
-            continue
-        t = next(i for i, (x, y) in enumerate(zip(s_c, s_g)) if x != y)
-        gap = _top2_gap(params, cfg, a.prompt, widths[rid], s_c[:t], capacity, device)
-        divergences.append({"rid": rid, "step": t, "top2_gap": gap})
+    divergences = _divergences(srv, params, cfg, arrivals, capacity, device)
     return {"metrics": metrics, "wall_s": wall, "launches": launches,
             "prefill_calls": srv.prefill_calls, "host_fetches": fetches_continuous,
             "widths": widths, "identical_share": 1.0 - len(divergences) / len(arrivals),
@@ -674,13 +734,32 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def _device_profile(fn, host: bool = True) -> Optional[tuple]:
+    """``fn()`` under torch.profiler, tracing the host's ops too unless
+    ``host`` is false: (device busy µs, window µs from the first device op's
+    start to the last one's end, device ops, µs by kernel name), or None
+    when the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        fn()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    return _busy_us(spans), window, len(kernels), by_name
+
+
 def phase_profile(device, serve: dict, card: str, top: int = 8) -> None:
     """A main path's requests again on warm servers: once plain (warm
     tokens/s and p50; the first run paid cuBLAS and allocator set-up), once
     under torch.profiler for the device's busy share and the kernels that
     take its time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.runtime import serve_loop, traffic
 
     cfg = serve["cfg"]
@@ -696,21 +775,14 @@ def phase_profile(device, serve: dict, card: str, top: int = 8) -> None:
     m = serve_once()
     print(f"{tag}: warm rerun tokens_per_s {m['tokens_per_s']:.2f}, "
           f"p50_latency_s {m['p50_latency_s']:.4f} ({card})")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        serve_once()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    found = _device_profile(serve_once)
+    if found is None:
         print(f"{tag}: the profiler recorded no device activity")
         return
-    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
-    busy = _busy_us(spans)
-    window = max(e for _, e in spans) - min(s for s, _ in spans)
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy, window, n_ops, by_name = found
     total = sum(by_name.values())
     print(f"{tag}: device busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms window "
-          f"(idle share {1 - busy / window:.3f}, profiler on), {len(kernels)} device ops")
+          f"(idle share {1 - busy / window:.3f}, profiler on), {n_ops} device ops")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"{tag}: {us / total:6.3f} of device time, {us / 1e3:8.2f} ms  {name[:90]}")
     for kernel, markers in PORT_KERNELS.items():
@@ -1076,10 +1148,361 @@ def phase_campaign(device, card: str) -> dict:
     return {"launches": launches, "wall_s": wall}
 
 
+# ------------------------------------------------------------------- online
+ONLINE_SEED = 1              # the tuner's: its first random proposals fall on both sides of 16
+ONLINE_KINDS = {"canary_start": ("seq", "challenger", "champion", "windows"),
+                "canary_verdict": ("seq", "challenger", "verdict"),
+                "promote": ("seq", "settings"),
+                "rollback": ("seq", "restored", "reason")}
+
+
+def _check_journal(rows, tuner_id: str) -> None:
+    from repro_torch.runtime.online import ONLINE_SCHEMA_VERSION
+
+    for i, row in enumerate(rows):
+        need = ONLINE_KINDS.get(row.get("kind"))
+        if (need is None or row.get("schema") != ONLINE_SCHEMA_VERSION
+                or row.get("tuner") != tuner_id or any(k not in row for k in need)
+                or not isinstance(row["seq"], int)):
+            raise AssertionError(f"online journal row {i} is malformed: {row}")
+
+
+def online_main_path(device, cfg, *, capacity: int, params=None, budget: int = 3,
+                     windows_per_eval: int = 4, init_seed: int = 0) -> dict:
+    """The live server under the online tuner: the online benchmark's adapt
+    phase (``repro_torch.bench.online_tuning.make_tuner`` and ``adapt``) on
+    a continuous server at its stale settings (``sync_interval`` 16) over
+    the post-shift ``traffic.drifting`` slice, until a challenger promotes
+    or the budget is spent, with the journal and store in a temporary
+    directory (the default store for the phase).  Raises on a malformed
+    journal row, a prefill that bypassed its kernels, a host fetch outside
+    the one per sync, a resumed tuner that does not restore the champion
+    and the remaining budget, or a resolve that does not return a promoted
+    ``sync_interval``."""
+    import tempfile
+
+    from repro_torch.bench import online_tuning as twin
+    from repro_torch.core import config, configstore
+    from repro_torch.models import model as M
+    from repro_torch.runtime import online, serve_loop
+
+    device = torch.device(device)
+    kernels = _kernels()
+    if params is None:
+        params = M.init_params(cfg, torch.Generator(device=device).manual_seed(init_seed),
+                               device=device)
+    _, post = twin.split_arrivals(7, quick=False)
+
+    def tuner_on(server, root, tuner_id=None):
+        return twin.make_tuner(server, store, root / "journal", budget=budget,
+                               windows_per_eval=windows_per_eval, seed=ONLINE_SEED,
+                               tuner_id=tuner_id)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_online_") as tmp:
+        root = Path(tmp)
+        store = configstore.ConfigStore(root / "store")
+        old = configstore.set_default_store(store)
+        try:
+            srv = serve_loop.BatchedServer(params, cfg, capacity=capacity, eos_id=-1,
+                                           mode="continuous", settings=twin.SETTINGS_STALE,
+                                           device=device)
+            tuner = tuner_on(srv, root)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            for fn in kernels.values():              # counts of this path only
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with _FetchCounter() as fetches:
+                replays = twin.adapt(tuner, post)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in kernels.items()}
+
+            rows = tuner.journal.rows()
+            _check_journal(rows, tuner.tuner_id)
+            if len(fetches.rows) != srv.decode_syncs or sum(fetches.rows) != srv.decode_steps:
+                raise AssertionError(f"_host_fetch ran {len(fetches.rows)} times carrying "
+                                     f"{sum(fetches.rows)} decode steps; the server made "
+                                     f"{srv.decode_syncs} syncs of {srv.decode_steps} steps")
+            expected = (_expected_launches(cfg, srv.prefill_calls) if device.type == "cuda"
+                        else dict.fromkeys(kernels, 0))
+            if launches != expected:
+                raise AssertionError(f"kernel launches {launches} for {srv.prefill_calls} "
+                                     f"prefills x {cfg.n_layers} layers; expected {expected}")
+
+            n_verdicts = sum(r["kind"] == "canary_verdict" for r in rows)
+            srv2 = serve_loop.BatchedServer(params, cfg, capacity=capacity, eos_id=-1,
+                                            mode="continuous", settings=twin.SETTINGS_STALE,
+                                            device=device)
+            resumed = tuner_on(srv2, root, tuner_id=tuner.tuner_id)
+            want_budget = max(1, budget - n_verdicts)
+            if (resumed.champion != tuner.champion
+                    or resumed._exhausted != (n_verdicts >= budget)
+                    or resumed.core.session.budget != want_budget
+                    or any(srv2.current_config()[k] != v for k, v in tuner.champion.items())):
+                raise AssertionError(f"the resumed tuner has champion {resumed.champion}, "
+                                     f"session budget {resumed.core.session.budget}; the journal "
+                                     f"says {tuner.champion}, {want_budget}")
+            resolved = config.resolve(online.COMPONENT, srv.workload)
+            if tuner.promotions and resolved["sync_interval"] != tuner.champion["sync_interval"]:
+                raise AssertionError(f"resolve gives sync_interval {resolved['sync_interval']}, "
+                                     f"the tuner promoted {tuner.champion['sync_interval']}")
+        finally:
+            configstore.set_default_store(old)
+    return {"rows": rows, "promotions": tuner.promotions, "rollbacks": tuner.rollbacks,
+            "champion": tuner.champion, "resolved": resolved, "replays": replays,
+            "wall_s": wall, "launches": launches, "prefill_calls": srv.prefill_calls,
+            "decode_steps": srv.decode_steps, "host_fetches": len(fetches.rows),
+            "n_requests": replays * len(post), "workload": srv.workload}
+
+
+def online_parity_path(device, cfg, *, capacity: int = 64, n_requests: int = 8,
+                       max_width: int = 32, seed: int = SEED) -> dict:
+    """The continuous server with an ``OnlineTuner`` in the loop (default
+    knobs, one window per canary, so the scheduler is re-knobbed at nearly
+    every sync) against the same requests one at a time (gang mode, batch
+    1).  Returns the divergences with their top-2 logit gaps."""
+    import tempfile
+
+    from repro_torch.core import configstore
+    from repro_torch.models import model as M
+    from repro_torch.runtime import online, serve_loop, traffic
+
+    device = torch.device(device)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(3), device=device)
+    arrivals = smoke_arrivals(seed, n_requests, cfg.vocab_size, max_width, long_max=16)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_online_parity_") as tmp:
+        srv = serve_loop.BatchedServer(params, cfg, capacity=capacity, eos_id=-1,
+                                       mode="continuous", settings={"max_batch": 4},
+                                       device=device)
+        tuner = online.OnlineTuner(srv, store=configstore.ConfigStore(Path(tmp) / "store"),
+                                   journal_root=Path(tmp) / "journal", optimizer="rs", budget=6,
+                                   windows_per_eval=1, seed=ONLINE_SEED)
+        with _FetchCounter() as fetches:
+            traffic.replay(tuner, arrivals)
+        canaries = sum(r["kind"] == "canary_start" for r in tuner.journal.rows())
+    if len(fetches.rows) != srv.decode_syncs or sum(fetches.rows) != srv.decode_steps:
+        raise AssertionError(f"_host_fetch ran {len(fetches.rows)} times for "
+                             f"{srv.decode_syncs} syncs")
+    divergences = _divergences(srv, params, cfg, arrivals, capacity, device)
+    return {"divergences": divergences, "canaries": canaries, "n_requests": len(arrivals),
+            "identical_share": 1.0 - len(divergences) / len(arrivals)}
+
+
+def phase_online(device, card: str, serve: dict) -> dict:
+    """Full-width OLMo-1B (the serve phase's weights, bf16) tuned live on
+    the card; then reduced OLMo-1B in float32 with the tuner in the loop
+    against the one-at-a-time gang."""
+    from repro_torch.bench import online_tuning as twin
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = serve["cfg"]
+    out = online_main_path(device, cfg, capacity=2048, params=serve["params"])
+    print(f"online: {cfg.name} full width, bf16, capacity 2048, stale settings "
+          f"{twin.SETTINGS_STALE}, post-shift drifting slice x {out['replays']} replays "
+          f"({out['n_requests']} requests), the adapt phase of repro_torch.bench.online_tuning "
+          f"(rs budget 3 x 4 window pairs, until a promotion or the budget is spent), on {card}")
+    for r in out["rows"]:
+        detail = {"canary_start": lambda: f"challenger {r['challenger']} vs {r['champion']}",
+                  "canary_verdict": lambda: (f"{r['verdict']['verdict']} (effect "
+                                             f"{r['verdict']['effect']:+.3f}, p "
+                                             f"{r['verdict']['p_value']})"),
+                  "promote": lambda: f"settings {r['settings']}",
+                  "rollback": lambda: f"restored {r['restored']} ({r['reason']})"}[r["kind"]]()
+        print(f"online: seq {r['seq']} {r['kind']}: {detail}")
+    print(f"online: {out['promotions']} promotions, {out['rollbacks']} rollbacks, champion "
+          f"{out['champion']}; config.resolve('torch_serve_batching', '{out['workload']}') -> "
+          f"{out['resolved']}")
+    print(f"online: {out['prefill_calls']} prefills, {out['decode_steps']} decode steps, "
+          f"{out['host_fetches']} host fetches (one per sync), launches {out['launches']} "
+          f"(= prefills x {cfg.n_layers} layers); a resumed tuner restored the champion and "
+          f"the budget; wall {out['wall_s']:.1f} s")
+
+    small = get_config(cfg.name).reduced()
+    par = online_parity_path(device, small)
+    ties = [d for d in par["divergences"] if d["top2_gap"] >= 1e-4]
+    if ties:
+        raise AssertionError(f"reduced {cfg.name} f32 with the tuner in the loop: continuous vs "
+                             f"sequential streams differ beyond near-ties: {ties}")
+    print(f"online: reduced {cfg.name} f32 with the tuner in the loop ({par['canaries']} "
+          f"canaries): identical streams {par['identical_share']:.3f} of {par['n_requests']} "
+          f"requests (near-ties {len(par['divergences'])})")
+    print(f"online: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# -------------------------------------------------------------- serve-bench
+def serve_bench_path(device, *, capacity: int, repeats: int, trajectory) -> dict:
+    """``repro_torch.bench.serve_scenarios`` on the heavy-tail mix (full
+    width on the card, reduced on the CPU): one
+    warm-up replay per scheduler, then ``repeats`` each; its records go to
+    ``trajectory``.  Returns the twin's result, the records read back and
+    the launches of the run."""
+    import tempfile
+
+    from repro_torch.bench import serve_scenarios as twin
+    from repro_torch.core.baseline import BaselineStore
+
+    kernels = _kernels()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    for fn in kernels.values():                      # counts of this path only
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_bench_") as tmp:
+        records = twin.bench(quick=False, seed=7, device=device, capacity=capacity,
+                             scenarios=["heavy_tail"], repeats=repeats, out_dir=tmp)
+        res = json.loads((Path(tmp) / "serve_scenarios.json").read_text())
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    store = BaselineStore(trajectory)
+    store.append(records, quick=False)
+    rows = list(store.rows())
+    if len(rows) != len(records) or any(r["context"]["component"] != twin.COMPONENT
+                                        for r in rows):
+        raise AssertionError(f"the trajectory holds {rows}")
+    n = res["scenarios"]["heavy_tail"]["n_requests"]
+    replays = 1 + repeats                            # the warm-up, then the timed ones
+    prefills = replays * (n + math.ceil(n / twin.MAX_BATCH))   # continuous: one a request
+    return {"res": res, "rows": rows, "launches": launches, "prefills": prefills}
+
+
+def phase_serve_bench(device, card: str, serve: dict) -> dict:
+    """The serve benchmark twin at full-width OLMo-1B (bf16, capacity 2048),
+    heavy tail only, 5 repeats a scheduler after a warm-up, records into a
+    temporary trajectory; then one more continuous replay (on the serve
+    phase's weights) under the profiler, device activity only, for the
+    device's idle share."""
+    import tempfile
+
+    from repro_torch.bench import serve_scenarios as twin
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import traffic
+
+    t0 = time.perf_counter()
+    cfg = get_config("olmo-1b")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trajectory_") as tmp:
+        out = serve_bench_path(device, capacity=2048, repeats=5,
+                               trajectory=Path(tmp) / "trajectory.jsonl")
+    res, row = out["res"], out["res"]["scenarios"]["heavy_tail"]
+    want = _expected_launches(cfg, out["prefills"])
+    if out["launches"] != want:
+        raise AssertionError(f"serve-bench launches {out['launches']}, expected {want}")
+    print(f"serve-bench: repro_torch.bench.serve_scenarios, {cfg.name} full width, bf16, "
+          f"capacity 2048, heavy_tail ({row['n_requests']} requests, seed 7 + 17), settings "
+          f"{res['settings']}, 1 warm-up + {res['repeats']} repeats per scheduler, on {card}")
+    for mode in ("gang", "continuous"):
+        m = row[mode]
+        print(f"serve-bench: {mode:10s} median tokens_per_s {np.median(m['tokens_per_s']):.2f}, "
+              f"p50_latency_s {np.median(m['p50_latency_s']):.4f}, p99_latency_s "
+              f"{np.median(m['p99_latency_s']):.4f} (samples {[round(v, 2) for v in m['tokens_per_s']]}); "
+              f"{int(m['total_tokens'])} tokens")
+    v = res["heavy_tail_verdict"]
+    print(f"serve-bench: continuous vs gang: {v['verdict']} (effect {v['effect']:+.3f}, p "
+          f"{v['p_value']}) -- printed, not gated; equal token totals gated; the twin's "
+          f"wall {res['wall_s']:.1f} s")
+    print(f"serve-bench: {len(out['rows'])} records appended to a temporary trajectory; "
+          f"launches {out['launches']} (= {out['prefills']} prefills x {cfg.n_layers} layers)")
+
+    arrivals = twin.scenario_arrivals(7, quick=False)["heavy_tail"]
+    n0 = {name: fn.launches for name, fn in _kernels().items()}
+    t1 = time.perf_counter()
+    found = _device_profile(lambda: (traffic.replay(twin._server(serve["params"], cfg,
+                                                                 "continuous", 2048, device),
+                                                    arrivals),
+                                     torch.cuda.synchronize()), host=False)
+    for name, fn in _kernels().items():              # the profiled replay is not counted
+        fn.launches = n0[name]
+    if found is None:
+        print("serve-bench: the profiler recorded no device activity")
+    else:
+        busy, window, n_ops, _ = found
+        print(f"serve-bench: continuous replay under torch.profiler (device activity only, "
+              f"{time.perf_counter() - t1:.1f} s): device busy {busy / 1e3:.1f} ms of a "
+              f"{window / 1e3:.1f} ms window (idle share {1 - busy / window:.3f}), "
+              f"{n_ops} device ops")
+    print(f"serve-bench: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------- serving-grid
+def serving_grid_path(device, *, budget: int, campaign_id: str = "chip-smoke-serving") -> dict:
+    """The ``serving`` campaign grid into a temporary store and journal (the
+    default store for the phase), then again under the same id.  Raises
+    unless every cell is done, every entry is filed under this process's
+    hardware and software, every promoted cell resolves its best, and the
+    rerun measures nothing."""
+    import tempfile
+
+    from repro_torch.core import configstore
+    from repro_torch.launch import campaign as launch
+    from repro_torch.runtime import serve_loop
+
+    kernels = _kernels()
+    hw, sw = configstore.hardware_fingerprint(), configstore.sw_fingerprint()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as tmp:
+        store = configstore.ConfigStore(Path(tmp) / "store")
+        old = configstore.set_default_store(store)
+        try:
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            for fn in kernels.values():              # counts of this path only
+                fn.launches = 0
+            t0 = time.perf_counter()
+            camp, results = launch.run_grid("serving", budget=budget, optimizer="bo", seed=0,
+                                            device=device, campaign_id=campaign_id, store=store,
+                                            journal_root=Path(tmp) / "journal")
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in kernels.items()}
+            cell_ids = {c.cell_id for c in camp.cells}
+            if len(cell_ids) != 2 or set(camp.journal.completed()) != cell_ids:
+                raise AssertionError(f"cells without a cell_done row: "
+                                     f"{sorted(cell_ids - set(camp.journal.completed()))}")
+            path = store.root / "torch_serve_batching.json"
+            entries = json.loads(path.read_text())["entries"] if path.exists() else []
+            for e in entries:
+                if e["context"]["hardware"] != hw or e["context"]["sw"] != sw:
+                    raise AssertionError(f"entry filed under {e['context']}, not {hw} / {sw}")
+            for r in results.values():
+                got = serve_loop.serve_settings.settings_for(r.cell.workload)
+                if r.promoted and got != r.best_config:
+                    raise AssertionError(f"{r.cell.cell_id}: settings_for gives {got}, "
+                                         f"promoted {r.best_config}")
+            again, res2 = launch.run_grid("serving", budget=budget, optimizer="bo", seed=0,
+                                          device=device, campaign_id=campaign_id, store=store,
+                                          journal_root=Path(tmp) / "journal")
+            if again.measure_calls != 0 or not all(r.resumed for r in res2.values()):
+                raise AssertionError(f"resume re-measured: {again.measure_calls} calls")
+        finally:
+            configstore.set_default_store(old)
+    return {"results": results, "measure_calls": camp.measure_calls, "entries": len(entries),
+            "hardware": hw, "wall_s": wall, "launches": launches}
+
+
+def phase_serving_grid(device, card: str) -> dict:
+    """The ``serving`` grid on the card (reduced OLMo-1B, bf16, budget 3);
+    the grid must launch the attention kernel."""
+    from repro_torch.launch import campaign as launch
+
+    t0 = time.perf_counter()
+    out = serving_grid_path(device, budget=3)
+    print(f"serving-grid: reduced olmo-1b, bf16, {len(out['results'])} cells, bo budget 3, "
+          f"{out['measure_calls']} measurements, wall {out['wall_s']:.1f} s, on {card}")
+    for _, r in sorted(out["results"].items()):
+        print("serving-grid: " + launch.describe(r))
+    if not out["launches"]["flash_attention"]:
+        raise AssertionError(f"the serving grid launched no attention kernel: {out['launches']}")
+    print(f"serving-grid: {out['entries']} entries filed under {out['hardware']}; launches "
+          f"{out['launches']}; a rerun under the same id measured nothing")
+    print(f"serving-grid: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     _import_port()
     card = phase_card()
@@ -1100,6 +1523,9 @@ def main() -> int:
     timing_ssd = phase_timing_ssd(device)
     timing_rms = phase_timing_rmsnorm(device)
     campaign = phase_campaign(device, card)
+    paths = {"online": phase_online(device, card, serves["olmo-1b"]),
+             "serve-bench": phase_serve_bench(device, card, serves["olmo-1b"]),
+             "serving-grid": phase_serving_grid(device, card)}
     phase_profile(device, serves["olmo-1b"], card)
     phase_profile(device, serves["mamba2-780m"], card)
 
@@ -1107,6 +1533,8 @@ def main() -> int:
         by_path = {name: out["launches"][kernel_name] for name, out in serves.items()
                    if out["launches"][kernel_name]}
         by_path["campaign"] = campaign["launches"][kernel_name]
+        by_path.update({name: out["launches"][kernel_name] for name, out in paths.items()
+                        if out["launches"][kernel_name]})
         return sum(by_path.values()), by_path
 
     timed = ("ms", "ms_device", "plain_ms", "plain_ms_device", "library_ms",
@@ -1136,6 +1564,7 @@ def main() -> int:
               "bf16 r16384 d1536, bf16 scale", residual=timing_rms["rmsnorm_res"],
               build=builds["rmsnorm"]),
     ]}
+    print(f"chip_smoke: total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

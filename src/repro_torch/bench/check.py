@@ -1,0 +1,111 @@
+"""Smoke assertions over the twins' benchmark JSON.
+
+The port of ``benchmarks/check_bench.py::check_serve_scenarios`` and
+``::check_online_tuning``, reading ``serve_scenarios.json`` and
+``online_tuning.json`` from a bench directory (by default
+:data:`~repro_torch.bench.BENCH_ROOT`).  The runner calls them after each
+twin; a failing assertion points at a line here.
+
+    PYTHONPATH=src python -m repro_torch.bench.check serve_scenarios online_tuning --expect-quick
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+from . import BENCH_ROOT
+
+SCENARIOS = ("diurnal", "bursts", "heavy_tail")
+
+
+def _expect(ok: bool, detail: Any = "") -> None:
+    """An assertion that ``python -O`` keeps."""
+    if not ok:
+        raise AssertionError(detail)
+
+
+def _load(name: str, expect_quick: Optional[bool], bench_dir: Any) -> Dict[str, Any]:
+    path = Path(bench_dir) / f"{name}.json"
+    d = json.loads(path.read_text())
+    if expect_quick is not None and d.get("quick") is not expect_quick:
+        raise AssertionError(f"{path}: quick={d.get('quick')!r}, expected {expect_quick}")
+    return d
+
+
+def check_serve_scenarios(expect_quick: Optional[bool] = None,
+                          bench_dir: Any = BENCH_ROOT) -> None:
+    """Every scenario that ran has samples on both sides and equal token
+    totals; the heavy-tail mix ran, and continuous batching beat gang on it
+    (a ``stats.compare`` verdict)."""
+    d = _load("serve_scenarios", expect_quick, bench_dir)
+    _expect(d["scenarios"] and set(d["scenarios"]) <= set(SCENARIOS), d["scenarios"].keys())
+    _expect("heavy_tail" in d["scenarios"], "the heavy-tail claim needs the heavy_tail mix")
+    for name, row in d["scenarios"].items():
+        for mode in ("gang", "continuous"):
+            _expect(len(row[mode]["tokens_per_s"]) >= 2, (name, mode))
+            _expect(all(s > 0 for s in row[mode]["tokens_per_s"]), (name, mode))
+            _expect(all(s >= 0 for s in row[mode]["p99_latency_s"]), (name, mode))
+        # identical offered work on both sides, or the A/B is bogus
+        _expect(row["gang"]["total_tokens"] == row["continuous"]["total_tokens"], name)
+    v = d["heavy_tail_verdict"]
+    _expect(v["verdict"] == "improved", (
+        f"continuous batching did not beat gang scheduling on the heavy-tail mix: {v}"))
+    _expect(v["candidate_location"] > v["baseline_location"], v)
+
+
+def check_online_tuning(expect_quick: Optional[bool] = None,
+                        bench_dir: Any = BENCH_ROOT) -> None:
+    """At least one canary promoted, every canary but a trailing one closed,
+    one rollback row per rollback, and the tuned config beat the frozen one
+    (a ``stats.compare`` verdict)."""
+    d = _load("online_tuning", expect_quick, bench_dir)
+    a = d["adapt"]
+    _expect(a["promotions"] >= 1, f"no canary promoted: {a}")
+    kinds = a["transitions"]
+    _expect("canary_start" in kinds and "canary_verdict" in kinds, kinds)
+    _expect("promote" in kinds, kinds)
+    # at most ONE canary still in flight when the adapt loop stopped, and
+    # only as the journal's trailing record
+    open_canaries = kinds.count("canary_start") - kinds.count("canary_verdict")
+    _expect(open_canaries in (0, 1), kinds)
+    if open_canaries:
+        _expect(kinds[-1] == "canary_start", kinds)
+    _expect(kinds.count("rollback") == a["rollbacks"], (kinds, a))
+    _expect(len(d["frozen_tokens_per_s"]) >= 2, d["frozen_tokens_per_s"])
+    _expect(all(s > 0 for s in d["frozen_tokens_per_s"] + d["tuned_tokens_per_s"]), d)
+    v = d["verdict"]
+    _expect(v["verdict"] == "improved", (
+        f"online tuning did not recover the traffic-mix shift: {v}"))
+    _expect(v["candidate_location"] > v["baseline_location"], v)
+
+
+CHECKS = {
+    "serve_scenarios": check_serve_scenarios,
+    "online_tuning": check_online_tuning,
+}
+
+
+def run_checks(names: List[str], expect_quick: Optional[bool] = None,
+               bench_dir: Any = BENCH_ROOT) -> None:
+    for name in names:
+        CHECKS[name](expect_quick=expect_quick, bench_dir=bench_dir)
+        print(f"check {name}: ok")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("names", nargs="*", default=list(CHECKS), choices=list(CHECKS))
+    ap.add_argument("--expect-quick", action="store_true")
+    ap.add_argument("--dir", default=str(BENCH_ROOT), help="bench directory to read")
+    args = ap.parse_args(argv)
+    run_checks(args.names or list(CHECKS), expect_quick=True if args.expect_quick else None,
+               bench_dir=args.dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,7 +15,7 @@ coordinates:
     chain: exact context → same workload on relaxed hardware/software → a
     component-wide ``"*"`` workload → ``None``;
   * :meth:`ConfigStore.promote` is the validated write path behind the
-    :func:`repro_torch.core.stats.compare` gate;
+    RPI envelope and the :func:`repro_torch.core.stats.compare` gate;
   * :func:`resolve_settings` is the per-call hot path of every component's
     ``settings_for``: override → explicit → stored entry → defaults, through
     an ``lru_cache`` keyed on (store token, store generation, context), so a
@@ -267,17 +267,25 @@ class ConfigStore:
         return entry
 
     def promote(self, context: Context, settings: Dict[str, Any], *,
+                rpi: Any = None, metrics: Optional[Dict[str, float]] = None,
                 baseline: Optional[List[float]] = None,
                 samples: Optional[List[float]] = None,
                 mode: str = "min", tolerance: float = 0.05, alpha: float = 0.05,
                 provenance: Optional[Dict[str, Any]] = None) -> bool:
-        """Validated write behind the :func:`stats.compare` gate: with
-        ``baseline`` + ``samples`` the config is rejected only on a
-        statistically significant regression beyond ``tolerance``; samples
-        too few for the test to reach ``alpha`` never reject.  The
-        comparator's verdict is recorded in provenance.  Returns True on
-        promotion; on rejection the store is untouched.  (The reference's
-        RPI envelope gate is not ported yet.)"""
+        """Validated write behind two optional gates:
+
+          * ``rpi`` + ``metrics`` — the envelope check
+            (:meth:`repro_torch.core.rpi.RPI.check`): a metric outside its
+            bounds, or missing, rejects;
+          * ``baseline`` + ``samples`` — the :func:`stats.compare` gate: the
+            config is rejected only on a statistically significant
+            regression beyond ``tolerance``; samples too few for the test to
+            reach ``alpha`` never reject.  The comparator's verdict is
+            recorded in provenance.
+
+        Returns True on promotion; on rejection the store is untouched."""
+        if rpi is not None and not rpi.check(metrics or {}):
+            return False
         prov = dict(provenance or {})
         if baseline is not None and samples is not None:
             from . import stats  # local: stats imports nothing from here

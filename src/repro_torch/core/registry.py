@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 from .tunable import Tunable, TunableSpace
 
 __all__ = ["MetricSpec", "ComponentMeta", "tunable_component", "get_component",
-           "all_components"]
+           "all_components", "default_instance", "settings_for"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +50,9 @@ class ComponentMeta:
 
 
 _REGISTRY: Dict[str, ComponentMeta] = {}
+# First-constructed instance per component: the module singleton whose
+# explicitly set keys the module-level settings_for honors.
+_DEFAULT_INSTANCE: Dict[str, Any] = {}
 
 
 def tunable_component(
@@ -80,6 +83,7 @@ def tunable_component(
             overrides = {k: kwargs.pop(k) for k in list(kwargs) if k in space}
             self.settings = space.validate(overrides)
             self._explicit_settings = set(overrides)
+            _DEFAULT_INSTANCE.setdefault(comp_name, self)
             orig_init(self, *args, **kwargs)
 
         cls.__init__ = __init__
@@ -119,3 +123,31 @@ def get_component(name: str) -> ComponentMeta:
 
 def all_components() -> List[ComponentMeta]:
     return list(_REGISTRY.values())
+
+
+def default_instance(name: str) -> Optional[Any]:
+    """First-constructed instance of a component (the module singleton)."""
+    return _DEFAULT_INSTANCE.get(name)
+
+
+def settings_for(context: Any) -> Dict[str, Any]:
+    """Resolve settings for a :class:`~repro_torch.core.configstore.Context`.
+
+    Module-level twin of the per-instance ``settings_for`` for callers that
+    hold a Context rather than a component instance.  All four coordinates
+    are honored; a wildcard hardware/sw means this process's fingerprints.
+    Keys set explicitly on the component's first-constructed instance
+    outrank a stored entry, as they do through the instance."""
+    from .configstore import WILDCARD, resolve_settings
+
+    meta = get_component(context.component)
+    inst = default_instance(context.component)
+    # mloslint: disable=MLOS002 -- the resolution machinery reads the singleton's explicit tier
+    explicit = ({k: inst.settings[k] for k in inst._explicit_settings}
+                if inst is not None else None)
+    s = resolve_settings(
+        context.component, context.workload, defaults=meta.space.defaults(),
+        explicit=explicit, space=meta.space,
+        hardware=None if context.hardware == WILDCARD else context.hardware,
+        sw=None if context.sw == WILDCARD else context.sw)
+    return meta.space.validate(s)

@@ -1,26 +1,29 @@
 """Launch tuning campaigns over declarative component × workload grids.
 
-The port of ``repro/launch/campaign.py`` for the ``kernels`` and ``demo``
-grids: named grids expand to :class:`CampaignCell` lists, each component
-gets a real measurement function (:mod:`repro_torch.launch.microbench` for
-the kernels, the deterministic demo components for ``demo``), and the
-grid runs through one mux with warm-start transfer, a resumable journal
-and gated promotion into the config store:
+The port of ``repro/launch/campaign.py`` for the ``kernels``, ``serving``
+and ``demo`` grids: named grids expand to :class:`CampaignCell` lists, each
+component gets a real measurement function
+(:mod:`repro_torch.launch.microbench` for the kernels, a reduced OLMo-1B
+:class:`~repro_torch.runtime.serve_loop.BatchedServer` run for serving, the
+deterministic demo components for ``demo``), and the grid runs through one
+mux with warm-start transfer, a resumable journal and gated promotion into
+the config store:
 
     PYTHONPATH=src python -m repro_torch.launch.campaign --grid kernels      # on the card
+    PYTHONPATH=src python -m repro_torch.launch.campaign --grid serving      # on the card
     PYTHONPATH=src python -m repro_torch.launch.campaign --grid demo --budget 8
     PYTHONPATH=src python -m repro_torch.launch.campaign --id <id> ...       # resume
 
-The ``kernels`` grid runs on the card unless ``--device cpu`` is given, and
-needs one: it does not fall back to the CPU.  On a CUDA device each kernel
-cell pins ``impl`` to ``kernel`` (the pin is part of the cell, written in
-the journal's ``cell_start`` row) and searches the kernel's launch
-tunables; the reference instead rewrites a ``pallas`` impl into a plain one
+The ``kernels`` and ``serving`` grids run on the card unless ``--device
+cpu`` is given, and need one: they do not fall back to the CPU.  On a CUDA
+device each kernel cell pins ``impl`` to ``kernel`` (the pin is part of the
+cell, written in the journal's ``cell_start`` row) and searches the
+kernel's launch tunables; the reference instead rewrites a ``pallas`` impl into a plain one
 off the TPU.  On the CPU the cells search the whole space, and ``kernel``
 routes to the plain version there.  A timed cell's promotion is gated on
 interleaved measurements of the default and the best config
 (:mod:`repro_torch.core.campaign`), so the comparator can reach a p-value.
-The ``serving`` and ``training`` grids are not ported yet.
+The ``training`` grid is not ported yet.
 """
 from __future__ import annotations
 
@@ -68,6 +71,9 @@ GRIDS: Dict[str, Dict[str, List[str]]] = {
             ssd_ops.workload_signature(2, 512, 48),
         ],
     },
+    "serving": {
+        "torch_serve_batching": ["reduced_c128", "reduced_c512"],
+    },
     "demo": {
         "torch_hashtable": ["n1024l2", "n2048l2", "n4096l4"],
         "torch_spinlock": ["heavy2", "heavy8"],
@@ -85,6 +91,7 @@ _OBJECTIVES = {
     "torch_flash_attention": ("time_us", "min"),
     "torch_rmsnorm_kernel": ("time_us", "min"),
     "torch_ssd_kernel": ("time_us", "min"),
+    "torch_serve_batching": ("tokens_per_s", "max"),
     "torch_hashtable": ("collisions", "min"),
     "torch_spinlock": ("throughput_ops_s", "max"),
 }
@@ -176,6 +183,49 @@ def _measure_ssd(cell: CampaignCell, settings: Dict[str, Any], reps: int,
     return _time_us(cell, fn, args, settings, reps)
 
 
+@functools.lru_cache(maxsize=2)
+def _serve_model(device: str):
+    """Reduced OLMo-1B, random weights from seed 0: bf16 on the card (the
+    served dtype, so prefills run the tensor-core attention kernel), the
+    config's float32 on the CPU (the reference's)."""
+    from ..configs import get_config
+    from ..models import model as M
+
+    cfg = get_config("olmo-1b").reduced().validate()
+    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else None
+    gen = torch.Generator(device=device).manual_seed(0)
+    return M.init_params(cfg, gen, device=device, dtype=dtype), cfg
+
+
+def _measure_serve(cell: CampaignCell, settings: Dict[str, Any], reps: int,
+                   device: str) -> Dict[str, float]:
+    """One server run of 12 seeded requests under the proposal.  The
+    proposal goes through the store's override tier for exactly this
+    workload, the path the server resolves at construction, so every tuned
+    knob (max_batch included) is live in the measurement."""
+    from ..runtime.serve_loop import BatchedServer
+
+    del reps  # one serve run is already an aggregate over many steps
+    f = _sig_fields(cell.workload)
+    capacity = next(iter(f.values()), 128)
+    params, cfg = _serve_model(device)
+    store = default_store()
+    store.set_override(cell.component, cell.workload, dict(settings))
+    try:
+        server = BatchedServer(params, cfg, capacity=capacity, workload=cell.workload,
+                               device=device)
+        rng = np.random.default_rng(cell.seed)
+        for _ in range(12):
+            plen = int(rng.integers(4, 12))
+            server.submit(rng.integers(2, 250, size=plen).astype(np.int32))
+        m = server.run()  # max_new_tokens resolves from the override
+    finally:
+        store.clear_override(cell.component, cell.workload)
+    # every metric the component declares: telemetry packing needs the set
+    return {k: float(m[k]) for k in
+            ("tokens_per_s", "p50_latency_s", "queue_depth", "live_slots")}
+
+
 def _measure_hashtable(cell: CampaignCell, settings: Dict[str, Any], reps: int,
                        device: str) -> Dict[str, float]:
     from ..core.smartcomponents import TunableHashTable, hashtable_workload
@@ -201,6 +251,7 @@ _MEASURES = {
     "torch_flash_attention": _measure_flash,
     "torch_rmsnorm_kernel": _measure_rmsnorm,
     "torch_ssd_kernel": _measure_ssd,
+    "torch_serve_batching": _measure_serve,
     "torch_hashtable": _measure_hashtable,
     "torch_spinlock": _measure_spinlock,
 }
@@ -220,10 +271,10 @@ def run_grid(grid: str, *, budget: int = 12, optimizer: str = "bo", seed: int = 
              store: Optional[ConfigStore] = None, journal_root: Any = CAMPAIGN_ROOT,
              reps: int = 3, warm_start: bool = True) -> Tuple[Campaign, Dict[str, CellResult]]:
     """Build the grid's cells and measure, run the campaign, return both.
-    A kernel grid on a CUDA device that finds none raises."""
-    if grid == "kernels" and torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the kernels grid runs on the card and no CUDA device is visible; "
-                           "pass device='cpu' to time the plain versions")
+    A kernels or serving grid on a CUDA device that finds none raises."""
+    if grid != "demo" and torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"the {grid} grid runs on the card and no CUDA device is visible; "
+                           "pass device='cpu' to run it on the CPU")
     cells = grid_cells(grid, budget=budget, optimizer=optimizer, seed=seed, quick=quick,
                        device=device)
     campaign = Campaign(cells, build_measure(reps=reps, device=device),
@@ -261,7 +312,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="disable cross-context warm starts (A/B baseline)")
     ap.add_argument("--reps", type=int, default=3,
                     help="timing samples per evaluation (kernel grids)")
-    ap.add_argument("--device", default="cuda", help="device of the kernel grid (cuda or cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the kernels and serving grids (cuda or cpu)")
     ap.add_argument("--store", default=None, help="config store root (default: results/configstore)")
     ap.add_argument("--journal-root", default=str(CAMPAIGN_ROOT), help="campaign journal directory")
     ap.add_argument("--set", action="append", default=[], metavar="K=V",

@@ -51,16 +51,17 @@ from ..models import model as M
 from ..models.config import ModelConfig
 
 __all__ = ["serve_settings", "ServeSettings", "BatchedServer", "workload_signature",
-           "HOT_SWAP_KNOBS"]
+           "HOT_SWAP_KNOBS", "COMPONENT"]
 
 # Tunables swappable on a LIVE server between steps (see apply_config): pure
 # scheduling knobs.  max_batch (and capacity) size the device state built at
 # __init__ — changing them means building a new server.
 HOT_SWAP_KNOBS = ("admission", "prefill_chunk", "sync_interval", "max_new_tokens")
+COMPONENT = "torch_serve_batching"
 
 
 @tunable_component(
-    name="torch_serve_batching",
+    name=COMPONENT,
     tunables=(
         Int("max_batch", default=8, low=1, high=256, log=True),
         Int("max_new_tokens", default=32, low=1, high=4096, log=True),

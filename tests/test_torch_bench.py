@@ -1,0 +1,251 @@
+"""The port's serving benchmarks (``repro_torch.bench``), their runner and
+gate, their checks, and the ``serving`` campaign grid, on the CPU at
+reduced size.
+
+The twins' claims are ``stats.compare`` verdicts over wall-clock samples.
+On a CPU shared with other processes, a wall-clock sample of the reduced
+model moves by tens of percent between runs, which would make the checks' verdict
+assertions flip at random.  So these tests run the servers under a cost
+model clock (:class:`CostClock`): the serve loop's clock advances by a fixed
+cost per decode step, per prefill and per host fetch, the costs the host
+pays on the card, where it sets the pace.  The verdicts then follow the
+schedulers' work (decode steps, prefills, syncs) and are reproducible; the
+pipeline from replay to record, check and gate is the real one.  Nothing
+here measures a speed.
+"""
+from __future__ import annotations
+
+import inspect
+import json
+import types
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from benchmarks import check_bench as jcheck_bench
+from repro.core import baseline as jbaseline
+from repro.core import rpi as jrpi
+from repro.core import tracking as jtracking
+from repro.runtime import online as jonline
+from repro_torch.bench import BENCH_ROOT, check, online_tuning, runner, serve_scenarios
+from repro_torch.core import baseline, configstore, rpi, tracking
+from repro_torch.core import campaign as tcampaign
+from repro_torch.core.baseline import BenchRecord
+from repro_torch.launch import campaign as tlaunch
+from repro_torch.models import model as M
+from repro_torch.runtime import online, serve_loop
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+class CostClock:
+    """``time.perf_counter`` for the serve loop: seconds charged per model
+    call rather than read from the wall, each charge with a seeded 2%
+    jitter (with none, repeated samples tie and the median permutation test
+    can never reach significance)."""
+
+    DECODE, PREFILL, FETCH = 1e-3, 2e-3, 5e-4
+
+    def __init__(self, seed: int):
+        self.now = 0.0
+        self.rng = np.random.default_rng(seed)
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    def charging(self, fn, cost):
+        def wrapped(*args, **kwargs):
+            self.now += cost * (1.0 + 0.02 * float(self.rng.standard_normal()))
+            return fn(*args, **kwargs)
+        return wrapped
+
+
+@pytest.fixture
+def cost_clock(monkeypatch, request):
+    clock = CostClock(zlib.crc32(request.node.name.encode()))
+    monkeypatch.setattr(serve_loop, "time", types.SimpleNamespace(perf_counter=clock.perf_counter))
+    monkeypatch.setattr(M, "decode_step", clock.charging(M.decode_step, clock.DECODE))
+    monkeypatch.setattr(M, "prefill", clock.charging(M.prefill, clock.PREFILL))
+    monkeypatch.setattr(serve_loop, "_host_fetch",
+                        clock.charging(serve_loop._host_fetch, clock.FETCH))
+    return clock
+
+
+@pytest.fixture
+def store(tmp_path):
+    st = configstore.ConfigStore(tmp_path / "cs")
+    old = configstore.set_default_store(st)
+    yield st
+    configstore.set_default_store(old)
+
+
+# ------------------------------------------------------------------- twins
+def test_serve_scenarios_quick_heavy_tail_passes_its_check(tmp_path, cost_clock):
+    res = serve_scenarios.run(quick=True, device="cpu", scenarios=["heavy_tail"], repeats=2,
+                              out_dir=tmp_path)
+    check.check_serve_scenarios(expect_quick=True, bench_dir=tmp_path)
+    written = json.loads((tmp_path / "serve_scenarios.json").read_text())
+    assert written == json.loads(json.dumps(res))
+    assert written["warmup_replays"] == 2 and written["device"] == "cpu"
+    assert written["workload"] == "dense_c128" and written["settings"] == serve_scenarios.SETTINGS
+    row = written["scenarios"]["heavy_tail"]
+    assert row["n_requests"] == 12 and len(row["gang"]["tokens_per_s"]) == 2
+    assert written["heavy_tail_verdict"]["verdict"] == "improved"
+
+
+def _reduced_registry(monkeypatch):
+    monkeypatch.setitem(runner.REGISTRY, "serve_scenarios", lambda quick, seed, **kw:
+                        serve_scenarios.bench(quick, seed, scenarios=["heavy_tail"],
+                                              repeats=2, **kw))
+    monkeypatch.setitem(runner.REGISTRY, "online_tuning", lambda quick, seed, **kw:
+                        online_tuning.bench(quick, seed, budget=4, **kw))
+
+
+def test_runner_runs_both_twins_checks_and_records_them(tmp_path, cost_clock, monkeypatch):
+    """``--quick`` on the CPU: both twins run, their JSON passes check.py,
+    and each record lands in the trajectory under this process's ``cpu:``
+    context and the port's serve component."""
+    _reduced_registry(monkeypatch)
+    traj = tmp_path / "trajectory.jsonl"
+    rep = runner.run_and_gate(["serve_scenarios", "online_tuning"], quick=True, seed=7,
+                              gate=True, tolerance=0.25, window=5, alpha=0.05, device="cpu",
+                              trajectory=traj, out_dir=tmp_path)
+    assert rep["ok"] and rep["appended"] == 3
+    assert {r["verdict"] for r in rep["results"]} == {"no_baseline"}
+    rows = list(baseline.BaselineStore(traj).rows())
+    assert [(r["benchmark"], r["metric"]) for r in rows] == [
+        ("serve_scenarios", "heavy_tail_tokens_per_s"),
+        ("serve_scenarios", "heavy_tail_p99_latency_s"),
+        ("online_tuning", "post_shift_tokens_per_s")]
+    for r in rows:
+        assert r["quick"] is True and r["schema"] == baseline.SCHEMA_VERSION
+        assert r["context"]["component"] == "torch_serve_batching"
+        assert r["context"]["hardware"].startswith("cpu:")
+        assert len(r["values"]) >= 2 and all(v > 0 for v in r["values"])
+    assert rows[0]["meta"]["vs_gang"]["verdict"] == "improved"
+    assert rows[2]["meta"]["promotions"] >= 1
+    check.check_online_tuning(expect_quick=True, bench_dir=tmp_path)
+    tuned = json.loads((tmp_path / "online_tuning.json").read_text())
+    assert tuned["tuned"]["sync_interval"] < online_tuning.SETTINGS_STALE["sync_interval"]
+    assert json.loads((tmp_path / "gate_report.json").read_text())["appended"] == 3
+
+
+def test_runner_gate_fails_on_a_planted_2x_regression(tmp_path, monkeypatch):
+    factor = {"x": 1.0}
+
+    def synthetic(quick, seed, **kw):
+        rng = np.random.default_rng(seed)
+        return [BenchRecord.for_component(
+            "synthetic", "lat_ms", (rng.normal(100, 3, 15) * factor["x"]).tolist(),
+            "comp", "wl0")]
+
+    monkeypatch.setitem(runner.REGISTRY, "synthetic", synthetic)
+    traj = tmp_path / "trajectory.jsonl"
+
+    def gate(seed):
+        return runner.run_and_gate(["synthetic"], quick=True, seed=seed, gate=True,
+                                   tolerance=0.25, window=5, alpha=0.05, device="cpu",
+                                   trajectory=traj, out_dir=tmp_path, smoke=False)
+
+    assert gate(1)["results"][0]["verdict"] == "no_baseline"
+    assert gate(2)["results"][0]["verdict"] == "noise"
+    factor["x"] = 2.0
+    rep = gate(3)
+    assert rep["results"][0]["verdict"] == "regressed" and not rep["ok"]
+    report = json.loads((tmp_path / "gate_report.json").read_text())
+    assert report["results"][0]["verdict"] == "regressed"
+
+
+def test_runner_cli_lists_the_twins_and_check_rejects_a_bad_record(tmp_path, capsys):
+    assert runner.main(["--list"]) == 0
+    assert capsys.readouterr().out.split() == ["serve_scenarios", "online_tuning"]
+    bad = {"quick": True, "scenarios": {"heavy_tail": {
+        mode: {"tokens_per_s": [1.0, 2.0], "p99_latency_s": [0.1, 0.1], "total_tokens": t}
+        for mode, t in (("gang", 10.0), ("continuous", 11.0))}},
+        "heavy_tail_verdict": {"verdict": "improved", "candidate_location": 2.0,
+                               "baseline_location": 1.0}}
+    (tmp_path / "serve_scenarios.json").write_text(json.dumps(bad))
+    with pytest.raises(AssertionError):
+        check.check_serve_scenarios(bench_dir=tmp_path)
+
+
+def test_twins_refuse_the_card_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in (serve_scenarios.run, online_tuning.run):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run(quick=True, device="cuda")
+    for fn in (serve_scenarios.run, online_tuning.run, runner.run_and_gate):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+# --------------------------------------------------------------- serving grid
+def test_serving_grid_cell_runs_and_promotes_on_the_cpu(tmp_path, store, cost_clock):
+    """One ``serving`` cell, the real measure (a reduced OLMo-1B server run
+    of 12 seeded requests) on the CPU: it promotes under this process's
+    ``cpu:`` context, the server then resolves the promoted settings, and a
+    rerun under the same id measures nothing."""
+    cells = tlaunch.grid_cells("serving", budget=2, optimizer="rs", seed=3, device="cpu")
+    assert [c.workload for c in cells] == ["reduced_c128", "reduced_c512"]
+    cell = cells[0]
+    camp = tcampaign.Campaign([cell], tlaunch.build_measure(device="cpu"), campaign_id="s",
+                              store=store, journal_root=tmp_path / "j")
+    r = camp.run()[cell.cell_id]
+    assert r.evaluations == 2 and r.promoted
+    entry = store.resolve_entry(cell.context())
+    assert entry["context"]["hardware"].startswith("cpu:")
+    assert entry["settings"] == r.best_config
+    assert serve_loop.serve_settings.settings_for(cell.workload) == r.best_config
+    assert store.get_override(cell.component, cell.workload) is None   # the measure cleaned up
+    again = tcampaign.Campaign([cell], tlaunch.build_measure(device="cpu"), campaign_id="s",
+                               store=store, journal_root=tmp_path / "j")
+    assert again.run()[cell.cell_id].resumed and again.measure_calls == 0
+
+
+def test_serving_grid_refuses_the_card_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        tlaunch.run_grid("serving", device="cuda")
+
+
+# ------------------------------------------------------------------ defaults
+def test_no_default_path_is_shared_with_the_reference():
+    """Online journal root and tuner id, trajectory, gate report, RPI root,
+    tracking root and the twins' JSON: the port's defaults and the
+    reference's (relative to the repository root, where its tools run) are
+    all distinct."""
+    def ref(p):
+        return (ROOT / p).resolve()
+
+    def default(fn, name):
+        return inspect.signature(fn).parameters[name].default
+
+    wl = "dense_c256"
+    reference = {
+        "online journal": ref(jonline.OnlineJournal(f"online-{wl}").path),
+        "trajectory": ref(jbaseline.TRAJECTORY_PATH),
+        "gate report": ref(Path(jcheck_bench.BENCH_DIR) / "gate_report.json"),
+        "rpi": ref(default(jrpi.RPI.save, "root")),
+        "runs": ref(default(jtracking.Tracker.__init__, "root")),
+        "serve_scenarios.json": ref(Path(jcheck_bench.BENCH_DIR) / "serve_scenarios.json"),
+        "online_tuning.json": ref(Path(jcheck_bench.BENCH_DIR) / "online_tuning.json"),
+    }
+    port_tuner_id = f"torch-online-{wl}"
+    port = {
+        "online journal": online.OnlineJournal(port_tuner_id).path.resolve(),
+        "trajectory": Path(baseline.TRAJECTORY_PATH).resolve(),
+        "gate report": (BENCH_ROOT / "gate_report.json").resolve(),
+        "rpi": Path(rpi.RPI_ROOT).resolve(),
+        "runs": Path(tracking.RUNS_ROOT).resolve(),
+        "serve_scenarios.json": (BENCH_ROOT / "serve_scenarios.json").resolve(),
+        "online_tuning.json": (BENCH_ROOT / "online_tuning.json").resolve(),
+    }
+    assert default(online.OnlineTuner.__init__, "journal_root") == online.ONLINE_ROOT
+    assert default(runner.run_and_gate, "out_dir") == BENCH_ROOT
+    assert default(runner.run_and_gate, "trajectory") == baseline.TRAJECTORY_PATH
+    every = list(reference.values()) + list(port.values())
+    assert len(set(every)) == len(every), {k: (reference[k], port[k]) for k in port}
+    for p in port.values():
+        assert ROOT / "results" / "torch" in p.parents

@@ -49,7 +49,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=env, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(_modules()) >= 29
+    assert len(_modules()) >= 39
 
 
 def test_the_ssm_slice_is_covered():
@@ -71,6 +71,20 @@ def test_the_tuning_slice_is_covered():
             "repro_torch.kernels.rmsnorm.ref", "repro_torch.kernels.rmsnorm.kernel",
             "repro_torch.kernels.rmsnorm.ops"} <= set(_modules())
     assert (PORT / "csrc" / "rmsnorm.cu").exists()
+
+
+def test_the_online_slice_is_covered():
+    """The online tuner, the config facade, tracking, RPI, the trajectory
+    and the serving benchmarks are among what the checks here walk."""
+    assert {"repro_torch.runtime.online", "repro_torch.core.config",
+            "repro_torch.core.tracking", "repro_torch.core.rpi", "repro_torch.core.baseline",
+            "repro_torch.bench", "repro_torch.bench.serve_scenarios",
+            "repro_torch.bench.online_tuning", "repro_torch.bench.runner",
+            "repro_torch.bench.check"} <= set(_modules())
+    for rel in ("runtime/online.py", "core/config.py", "core/tracking.py", "core/rpi.py",
+                "core/baseline.py", "bench/__init__.py", "bench/serve_scenarios.py",
+                "bench/online_tuning.py", "bench/runner.py", "bench/check.py"):
+        assert PORT / rel in SOURCES
 
 
 def test_the_tensor_core_attention_is_covered():
@@ -259,3 +273,86 @@ def test_chip_smoke_names_every_ssd_kernel(chip_smoke):
     assert set(chip_smoke.SSD_TC_PRODUCTS) < kernels
     assert all(k in sources["ssd_tc"] for k in chip_smoke.SSD_TC_PRODUCTS)
     assert chip_smoke.SSD_TC in chip_smoke.CUDA_SOURCES
+
+
+def test_chip_smoke_online_paths_on_cpu(chip_smoke):
+    """The online phase's functions at reduced size on the CPU: the tuner's
+    journal is well formed, one fetch per sync, no kernel launched, a
+    resumed tuner restores the champion and the budget; with the tuner in
+    the loop the streams equal the one-at-a-time ones."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("olmo-1b").reduced()
+    out = chip_smoke.online_main_path("cpu", cfg, capacity=64)
+    kinds = [r["kind"] for r in out["rows"]]
+    # the online benchmark's adapt phase: until a promotion or the budget is spent
+    assert kinds[0] == "canary_start"
+    assert out["promotions"] >= 1 or kinds.count("canary_verdict") == 3
+    assert kinds.count("canary_verdict") <= 3
+    assert out["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}
+    assert out["host_fetches"] > 0 and out["replays"] >= 1
+    assert out["resolved"]["sync_interval"] == (out["champion"]["sync_interval"]
+                                                if out["promotions"] else 4)
+    par = chip_smoke.online_parity_path("cpu", cfg)
+    assert par["divergences"] == [] and par["canaries"] >= 1
+    with pytest.raises(AssertionError, match="malformed"):
+        chip_smoke._check_journal([{**out["rows"][0], "seq": "1"}], out["rows"][0]["tuner"])
+
+
+def test_chip_smoke_serve_bench_path_on_cpu(chip_smoke, tmp_path):
+    out = chip_smoke.serve_bench_path("cpu", capacity=128, repeats=2,
+                                      trajectory=tmp_path / "trajectory.jsonl")
+    row = out["res"]["scenarios"]["heavy_tail"]
+    assert len(row["continuous"]["tokens_per_s"]) == 2
+    assert row["gang"]["total_tokens"] == row["continuous"]["total_tokens"]
+    assert [r["metric"] for r in out["rows"]] == ["heavy_tail_tokens_per_s",
+                                                  "heavy_tail_p99_latency_s"]
+    assert out["prefills"] == 3 * (20 + 5)
+    assert out["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}
+
+
+def test_chip_smoke_checks_every_attention_shape_its_serving_phases_run(chip_smoke, tmp_path,
+                                                                       monkeypatch):
+    """The kernels phase holds flash attention against its plain version at
+    every prefill shape that the serving phases give it: the serving grid's
+    (one measurement per cell: a cell's prompts come from its seed) and the
+    float32 parity phase's reduced OLMo-1B shapes as they are, the serve
+    benchmark's heavy tail (one replay per scheduler, reduced here) at
+    OLMo-1B's published heads."""
+    from repro_torch.bench import load_model
+    from repro_torch.bench import serve_scenarios as twin
+    from repro_torch.configs import get_config
+    from repro_torch.core import configstore
+    from repro_torch.core.registry import get_component
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import campaign as launch
+    from repro_torch.runtime import traffic
+
+    seen, real = [], ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                     kw["window"], kw["q_offset"]))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", spy)
+    checked = set(chip_smoke.ATTN_CASES)
+    old = configstore.set_default_store(configstore.ConfigStore(tmp_path / "store"))
+    try:
+        measure = launch.build_measure(device="cpu")
+        for cell in launch.grid_cells("serving", budget=3, optimizer="bo", seed=0, device="cpu"):
+            measure(cell, get_component(cell.component).space.defaults())
+    finally:
+        configstore.set_default_store(old)
+    chip_smoke.online_parity_path("cpu", get_config("olmo-1b").reduced())
+    assert seen and set(seen) <= checked, sorted(set(seen) - checked)
+    seen.clear()
+    params, cfg = load_model("olmo-1b", device="cpu", seed=7)
+    arrivals = twin.scenario_arrivals(7, quick=False)["heavy_tail"]
+    for mode in ("gang", "continuous"):
+        traffic.replay(twin._server(params, cfg, mode, 128, "cpu"), arrivals)
+    full = get_config("olmo-1b")
+    widened = {(b, sq, sk, full.n_heads, full.n_kv_heads, full.hd, w, o)
+               for b, sq, sk, _, _, _, w, o in seen}
+    assert {b for b, *_ in seen} == {twin.MAX_BATCH, 1}       # gang and continuous prefills
+    assert widened <= checked, sorted(widened - checked)
