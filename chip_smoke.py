@@ -34,10 +34,13 @@ Phases, in order; any failure exits non-zero before the result lines:
                      rows, with and without the residual, every compiled
                      instance at two ragged shapes and at the grid's two).
   4. serve         — full-width OLMo-1B (random bf16 weights from a seed)
-                     served by the continuous ``BatchedServer`` over the
-                     seeded heavy-tail mix with one prompt per pow2 prefill
-                     bucket up to 1024; the kernels' launch counts are
-                     zeroed just before and read just after.  The same
+                     served by the continuous ``BatchedServer`` on CUDA
+                     graphs (its default on the card) over the seeded
+                     heavy-tail mix with one prompt per pow2 prefill bucket
+                     up to 1024; the kernels' launch counts are zeroed just
+                     before and read just after, and must be (prefill
+                     executions + prefill captures) x layers: a capture
+                     records each wrapper's launch, a replay adds it back.  The same
                      requests then run one at a time (gang mode at batch 1,
                      the sequential reference), and the share of identical
                      token streams is reported with the top-2 logit gap at
@@ -52,6 +55,13 @@ Phases, in order; any failure exits non-zero before the result lines:
                      CPU (plain path), prefill at widths 24 and 2 plus 3
                      decode steps; then each served on the card: continuous
                      streams equal the one-at-a-time ones.
+  7b. graphs       — each full-width model again with ``step="eager"`` and
+                     ``step="graph"`` (the same step bodies on the same
+                     static buffers, without and with capture): every
+                     request's token stream must be identical; per path,
+                     tokens/s, p50/p99, the decode step at batch 8 by CUDA
+                     events, the host's wall and the device's busy time
+                     and idle share, and the step registry's counters.
   8. timing        — each kernel, its plain version and the one PyTorch call
                      that computes the same function (none for SSD) on two
                      yardsticks: CUDA events over 20 eager calls, and the
@@ -63,9 +73,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                      the SSD scan (bf16) at mamba2-780m's and hymba-1.5b's
                      widest prefill and the grid's two shapes, and the
                      float32 FMA kernel at mamba2-780m's.
-  9. profile       — the OLMo-1B and mamba2-780m serves again, warm: tokens/s
-                     and p50, then under torch.profiler the device's busy
-                     share and top kernels.
+  9. profile       — the OLMo-1B and mamba2-780m serves again on a warm
+                     server of each path (eager, graph): tokens/s and p50,
+                     then under torch.profiler (device activity only) the
+                     device's busy share and top kernels.
  10. campaign      — the MLOS loop on the card: the full ``kernels`` grid
                      (8 cells over the three kernels, bo, budget 6) through
                      ``repro_torch.launch.campaign`` into a temporary store
@@ -104,8 +115,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                      rerun under the same id measures nothing.
 
 Phases 11-13 run after the campaign phase, before the profiles.  Each phase
-from 11 on prints its wall time, and the script prints its total before the
-last two lines of standard output: the ``kernels`` JSON line and
+from 11 on prints its wall time; after each phase the script prints the
+memory the caching allocator reserved (``torch.cuda.max_memory_reserved``)
+and the time since the start, and it prints its total before the last two
+lines of standard output: the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The port imports no jax and nothing of
 the reference package, and neither does this script.
 """
@@ -571,25 +584,38 @@ def _divergences(srv, params, cfg, arrivals, capacity: int, device) -> list:
     return out
 
 
+def _prefill_terms(srv) -> tuple:
+    """(prefill executions, prefill captures) of a server: each adds one
+    launch per layer of every kernel its family runs (a capture records the
+    wrappers' launches, a replay adds them back)."""
+    return srv.prefill_calls, srv.graphs.captures.get("serve.prefill", 0)
+
+
 def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: int,
                     max_width: int, seed: int = SEED, long_max: int = 64,
-                    init_seed: int = 0, widths: Optional[list] = None) -> dict:
-    """Serve the smoke mix through the continuous server, then the same
-    requests one at a time (gang mode, batch 1).  Returns counts, metrics
-    and the divergences; raises if a request overran its budget, a sync
-    went missing or a prefill bypassed a kernel of its family."""
+                    init_seed: int = 0, widths: Optional[list] = None,
+                    step: Optional[str] = None, params=None, divergences: bool = True) -> dict:
+    """Serve the smoke mix through the continuous server (``step``: the
+    server's default, CUDA graphs on the card), then the same requests one
+    at a time (gang mode, batch 1).  Returns counts, metrics and the
+    divergences; raises if a request overran its budget, a sync went
+    missing or a prefill bypassed a kernel of its family."""
     from repro_torch.models import model as M
     from repro_torch.runtime import serve_loop, traffic
 
+    from repro_torch.core import compilecache
+
     device = torch.device(device)
     kernels = _kernels()
-    gen = torch.Generator(device=device).manual_seed(init_seed)
-    params = M.init_params(cfg, gen, device=device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(init_seed)
+        params = M.init_params(cfg, gen, device=device)
     arrivals = smoke_arrivals(seed, n_requests, cfg.vocab_size, max_width, long_max, widths)
+    registry0 = compilecache.cache_counters()
     with _FetchCounter() as fetches:
         srv = serve_loop.BatchedServer(params, cfg, capacity=capacity, eos_id=-1,
                                        mode="continuous", settings={"max_batch": max_batch},
-                                       device=device)
+                                       device=device, step=step)
         if device.type == "cuda":
             torch.cuda.synchronize()
         for fn in kernels.values():                  # counts of this path only
@@ -612,17 +638,22 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
     if not fetches_continuous == syncs == math.ceil(steps / srv.sync_interval):
         raise AssertionError(f"_host_fetch ran {fetches_continuous} times for {steps} decode steps "
                              f"at sync_interval {srv.sync_interval} ({syncs} syncs)")
-    expected = (_expected_launches(cfg, srv.prefill_calls) if device.type == "cuda"
+    prefills, captures = _prefill_terms(srv)
+    expected = (_expected_launches(cfg, prefills + captures) if device.type == "cuda"
                 else dict.fromkeys(kernels, 0))     # a CPU tensor never reaches a kernel
     if launches != expected:
-        raise AssertionError(f"kernel launches {launches} for {srv.prefill_calls} prefills x "
-                             f"{cfg.n_layers} layers of {cfg.family}; expected {expected}")
+        raise AssertionError(f"kernel launches {launches} for ({prefills} prefills + {captures} "
+                             f"captures) x {cfg.n_layers} layers of {cfg.family}; "
+                             f"expected {expected}")
+    registry = {k: v - registry0[k] for k, v in compilecache.cache_counters().items()}
 
-    divergences = _divergences(srv, params, cfg, arrivals, capacity, device)
+    found = _divergences(srv, params, cfg, arrivals, capacity, device) if divergences else []
     return {"metrics": metrics, "wall_s": wall, "launches": launches,
-            "prefill_calls": srv.prefill_calls, "host_fetches": fetches_continuous,
-            "widths": widths, "identical_share": 1.0 - len(divergences) / len(arrivals),
-            "divergences": divergences, "params": params, "arrivals": arrivals}
+            "prefill_calls": prefills, "captures": captures, "host_fetches": fetches_continuous,
+            "widths": widths, "identical_share": 1.0 - len(found) / len(arrivals),
+            "divergences": found, "params": params, "arrivals": arrivals,
+            "streams": _streams(srv), "server": srv, "registry": registry,
+            "step": srv.step_mode}
 
 
 def phase_serve(device, card: str, name: str = "olmo-1b", n_requests: int = 16,
@@ -632,14 +663,16 @@ def phase_serve(device, card: str, name: str = "olmo-1b", n_requests: int = 16,
     cfg = get_config(name)
     out = serve_main_path(device, cfg, capacity=2048, max_batch=8, n_requests=n_requests,
                           max_width=1024, widths=widths)
+    out["widths_asked"] = widths
     m = out["metrics"]
     launched = ", ".join(f"{n} {k} launches" for k, n in out["launches"].items() if n)
     print(f"{label}: {name} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.3f} B params, bf16) on {card}")
     print(f"{label}: {int(m['completed'])} requests, widths {sorted(set(out['widths']))}, "
           f"{int(m['total_tokens'])} tokens, {int(m['decode_steps'])} decode steps, "
-          f"{out['host_fetches']} host fetches, {out['prefill_calls']} prefills, {launched} "
-          f"(= prefills x {cfg.n_layers} layers)")
+          f"{out['host_fetches']} host fetches, step={out['step']}: {out['prefill_calls']} "
+          f"prefills + {out['captures']} prefill captures, {launched} (= (prefills + "
+          f"captures) x {cfg.n_layers} layers); registry {_registry_line(out['registry'])}")
     print(f"{label}: smoke reading, one cold run: continuous tokens_per_s "
           f"{m['tokens_per_s']:.2f}, p50_latency_s {m['p50_latency_s']:.4f}, "
           f"p99_latency_s {m['p99_latency_s']:.4f} ({card})")
@@ -652,6 +685,102 @@ def phase_serve(device, card: str, name: str = "olmo-1b", n_requests: int = 16,
         print(f"{label}: (reported, not a gate: in bf16 a decode step at batch 8 and one at "
               "batch 1 round differently; the f32 serve in the model phase must agree)")
     out["cfg"] = cfg
+    del out["server"]               # its graphs and caches go with it
+    return out
+
+
+def _registry_line(c: dict) -> str:
+    return (f"captures {int(c['captures'])}, replays {int(c['replays'])}, build "
+            f"{c['build_seconds']:.2f} s, hits {int(c['hits'])}, misses {int(c['misses'])}")
+
+
+def _memory(label: str, t_start: float) -> None:
+    print(f"{label}: torch.cuda.max_memory_reserved {torch.cuda.max_memory_reserved() / 2**30:.2f} "
+          f"GiB, memory_reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t_start:.1f} s since the start")
+
+
+# ------------------------------------------------------------------- graphs
+GRAPH_DECODE_STEPS = 20
+
+
+def decode_step_timing(srv, steps: int = GRAPH_DECODE_STEPS) -> dict:
+    """``steps`` decode steps of a warm server (after its run: every slot
+    done, so the state it advances is never read): CUDA events around them
+    (device ms a step, host gaps included where the host is slower), the
+    host's wall a step (enqueue to the end of the last step), and the
+    device's busy time a step and idle share under torch.profiler (device
+    activity only)."""
+    def run():
+        srv._hist_row.zero_()                   # the history takes at most 64 steps
+        for _ in range(steps):
+            srv._decode()
+
+    run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"events_ms": start.elapsed_time(end) / steps, "host_ms": 1e3 * wall / steps}
+    found = _device_profile(lambda: (run(), torch.cuda.synchronize()), host=False)
+    if found is not None:
+        busy, window, n_ops, _ = found
+        out.update(busy_ms=busy / 1e3 / steps, idle_share=1 - busy / window,
+                   ops_per_step=n_ops / steps)
+    return out
+
+
+def phase_graphs(device, card: str, serves: dict) -> dict:
+    """Each full-width model (the serve phases' weights and smoke mix, bf16,
+    capacity 2048, max_batch 8) served with ``step="eager"`` and with
+    ``step="graph"``: the same step bodies on the same static buffers,
+    without and with capture.  Fails unless every request's token stream is
+    identical between the two and the launch counts are exact on both.
+    Prints, per path, tokens/s and p50/p99 of the run (a graph server
+    captures during it), the decode step's device and host time, and the
+    registry's counters."""
+    out = {}
+    for name, serve in serves.items():
+        cfg = serve["cfg"]
+        runs = {}
+        for step in ("eager", "graph"):
+            r = serve_main_path(device, cfg, capacity=2048, max_batch=8,
+                                n_requests=len(serve["arrivals"]), max_width=1024,
+                                widths=serve["widths_asked"], step=step,
+                                params=serve["params"], divergences=False)
+            r["decode"] = decode_step_timing(r.pop("server"))
+            runs[step] = r
+            m, d = r["metrics"], r["decode"]
+            print(f"graphs: {name} step={step}: tokens_per_s {m['tokens_per_s']:.2f}, "
+                  f"p50_latency_s {m['p50_latency_s']:.4f}, p99_latency_s "
+                  f"{m['p99_latency_s']:.4f}; decode step at batch 8: {d['events_ms']:.3f} ms "
+                  f"by events, host wall {d['host_ms']:.3f} ms, device busy "
+                  f"{d.get('busy_ms', float('nan')):.3f} ms (idle share "
+                  f"{d.get('idle_share', float('nan')):.3f}, "
+                  f"{d.get('ops_per_step', float('nan')):.0f} device ops a step); "
+                  f"{r['prefill_calls']} prefills + {r['captures']} captures, launches "
+                  f"{r['launches']}; registry {_registry_line(r['registry'])} ({card})")
+        eager, graph = runs["eager"]["streams"], runs["graph"]["streams"]
+        differ = [rid for rid in eager if eager[rid] != graph[rid]]
+        for rid in differ:
+            t = next(i for i, (x, y) in enumerate(zip(eager[rid], graph[rid])) if x != y)
+            print(f"graphs: {name}: request {rid} differs at step {t}: eager "
+                  f"{eager[rid][t:t + 4]}, graph {graph[rid][t:t + 4]}")
+        if differ:
+            raise AssertionError(f"{name}: {len(differ)} of {len(eager)} token streams differ "
+                                 "between the eager and the graph path")
+        print(f"graphs: {name}: eager and graph streams identical for {len(eager)} of "
+              f"{len(eager)} requests; decode step {runs['eager']['decode']['events_ms']:.3f} -> "
+              f"{runs['graph']['decode']['events_ms']:.3f} ms by events")
+        out[name] = {step: {k: v for k, v in r.items() if k in ("metrics", "decode", "launches",
+                                                               "registry")}
+                     for step, r in runs.items()}
+    out["launches"] = {k: sum(r[step]["launches"][k] for r in out.values() for step in r)
+                       for k in _kernels()}
     return out
 
 
@@ -710,7 +839,9 @@ def phase_model(device, name: str) -> float:
         raise AssertionError(f"{name}: f32 continuous vs sequential streams differ beyond "
                              f"near-ties: {ties}")
     launched = ", ".join(f"{n} {k}" for k, n in out["launches"].items() if n)
-    print(f"model: reduced {name} f32 served on the card: {out['prefill_calls']} prefills, "
+    out.pop("server")
+    print(f"model: reduced {name} f32 served on the card (step={out['step']}): "
+          f"{out['prefill_calls']} prefills + {out['captures']} captures, "
           f"kernel launches {launched}, identical streams "
           f"{out['identical_share']:.3f} of requests (near-ties {len(out['divergences'])})")
     return worst
@@ -755,34 +886,36 @@ def _device_profile(fn, host: bool = True) -> Optional[tuple]:
     return _busy_us(spans), window, len(kernels), by_name
 
 
-def phase_profile(device, serve: dict, card: str, top: int = 8) -> None:
-    """A main path's requests again on warm servers: once plain (warm
-    tokens/s and p50; the first run paid cuBLAS and allocator set-up), once
-    under torch.profiler for the device's busy share and the kernels that
-    take its time."""
+def phase_profile(device, serve: dict, card: str, step: str, top: int = 8) -> None:
+    """A main path's requests again on a warm server of the given ``step``
+    path: one replay plain (warm tokens/s and p50; the first run paid cuBLAS
+    and allocator set-up, and a graph server its captures), one more on the
+    same server under torch.profiler for the device's busy share and the
+    kernels that take its time."""
     from repro_torch.runtime import serve_loop, traffic
 
     cfg = serve["cfg"]
-    tag = f"profile {cfg.name}"
+    tag = f"profile {cfg.name} step={step}"
+    srv = serve_loop.BatchedServer(serve["params"], cfg, capacity=2048, eos_id=-1,
+                                   settings={"max_batch": 8}, device=device, step=step)
 
     def serve_once():
-        srv = serve_loop.BatchedServer(serve["params"], cfg, capacity=2048, eos_id=-1,
-                                       settings={"max_batch": 8}, device=device)
         m = traffic.replay(srv, serve["arrivals"])
         torch.cuda.synchronize()
         return m
 
+    serve_once()
     m = serve_once()
     print(f"{tag}: warm rerun tokens_per_s {m['tokens_per_s']:.2f}, "
           f"p50_latency_s {m['p50_latency_s']:.4f} ({card})")
-    found = _device_profile(serve_once)
+    found = _device_profile(serve_once, host=False)
     if found is None:
         print(f"{tag}: the profiler recorded no device activity")
         return
     busy, window, n_ops, by_name = found
     total = sum(by_name.values())
     print(f"{tag}: device busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms window "
-          f"(idle share {1 - busy / window:.3f}, profiler on), {n_ops} device ops")
+          f"(idle share {1 - busy / window:.3f}, device activity only), {n_ops} device ops")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"{tag}: {us / total:6.3f} of device time, {us / 1e3:8.2f} ms  {name[:90]}")
     for kernel, markers in PORT_KERNELS.items():
@@ -1225,11 +1358,13 @@ def online_main_path(device, cfg, *, capacity: int, params=None, budget: int = 3
                 raise AssertionError(f"_host_fetch ran {len(fetches.rows)} times carrying "
                                      f"{sum(fetches.rows)} decode steps; the server made "
                                      f"{srv.decode_syncs} syncs of {srv.decode_steps} steps")
-            expected = (_expected_launches(cfg, srv.prefill_calls) if device.type == "cuda"
+            prefills, captures = _prefill_terms(srv)
+            expected = (_expected_launches(cfg, prefills + captures) if device.type == "cuda"
                         else dict.fromkeys(kernels, 0))
             if launches != expected:
-                raise AssertionError(f"kernel launches {launches} for {srv.prefill_calls} "
-                                     f"prefills x {cfg.n_layers} layers; expected {expected}")
+                raise AssertionError(f"kernel launches {launches} for ({prefills} prefills + "
+                                     f"{captures} captures) x {cfg.n_layers} layers; "
+                                     f"expected {expected}")
 
             n_verdicts = sum(r["kind"] == "canary_verdict" for r in rows)
             srv2 = serve_loop.BatchedServer(params, cfg, capacity=capacity, eos_id=-1,
@@ -1252,8 +1387,9 @@ def online_main_path(device, cfg, *, capacity: int, params=None, budget: int = 3
             configstore.set_default_store(old)
     return {"rows": rows, "promotions": tuner.promotions, "rollbacks": tuner.rollbacks,
             "champion": tuner.champion, "resolved": resolved, "replays": replays,
-            "wall_s": wall, "launches": launches, "prefill_calls": srv.prefill_calls,
-            "decode_steps": srv.decode_steps, "host_fetches": len(fetches.rows),
+            "wall_s": wall, "launches": launches, "prefill_calls": prefills,
+            "captures": captures, "decode_steps": srv.decode_steps,
+            "host_fetches": len(fetches.rows),
             "n_requests": replays * len(post), "workload": srv.workload}
 
 
@@ -1315,10 +1451,11 @@ def phase_online(device, card: str, serve: dict) -> dict:
     print(f"online: {out['promotions']} promotions, {out['rollbacks']} rollbacks, champion "
           f"{out['champion']}; config.resolve('torch_serve_batching', '{out['workload']}') -> "
           f"{out['resolved']}")
-    print(f"online: {out['prefill_calls']} prefills, {out['decode_steps']} decode steps, "
-          f"{out['host_fetches']} host fetches (one per sync), launches {out['launches']} "
-          f"(= prefills x {cfg.n_layers} layers); a resumed tuner restored the champion and "
-          f"the budget; wall {out['wall_s']:.1f} s")
+    print(f"online: {out['prefill_calls']} prefills + {out['captures']} prefill captures, "
+          f"{out['decode_steps']} decode steps, {out['host_fetches']} host fetches (one per "
+          f"sync), launches {out['launches']} (= (prefills + captures) x {cfg.n_layers} "
+          f"layers); a resumed tuner restored the champion and the budget; wall "
+          f"{out['wall_s']:.1f} s")
 
     small = get_config(cfg.name).reduced()
     par = online_parity_path(device, small)
@@ -1343,11 +1480,13 @@ def serve_bench_path(device, *, capacity: int, repeats: int, trajectory) -> dict
     import tempfile
 
     from repro_torch.bench import serve_scenarios as twin
+    from repro_torch.core import compilecache
     from repro_torch.core.baseline import BaselineStore
 
     kernels = _kernels()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+    steps0 = compilecache.step_counts().get("serve.prefill", {})
     for fn in kernels.values():                      # counts of this path only
         fn.launches = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_bench_") as tmp:
@@ -1364,7 +1503,14 @@ def serve_bench_path(device, *, capacity: int, repeats: int, trajectory) -> dict
     n = res["scenarios"]["heavy_tail"]["n_requests"]
     replays = 1 + repeats                            # the warm-up, then the timed ones
     prefills = replays * (n + math.ceil(n / twin.MAX_BATCH))   # continuous: one a request
-    return {"res": res, "rows": rows, "launches": launches, "prefills": prefills}
+    steps = compilecache.step_counts().get("serve.prefill", {})
+    ran = steps.get("runs", 0) - steps0.get("runs", 0)
+    if ran != prefills:
+        raise AssertionError(f"the registry ran serve.prefill {ran} times; {replays} replays of "
+                             f"{n} requests make {prefills} prefills")
+    captures = steps.get("captures", 0) - steps0.get("captures", 0)
+    return {"res": res, "rows": rows, "launches": launches, "prefills": prefills,
+            "captures": captures}
 
 
 def phase_serve_bench(device, card: str, serve: dict) -> dict:
@@ -1385,9 +1531,11 @@ def phase_serve_bench(device, card: str, serve: dict) -> dict:
         out = serve_bench_path(device, capacity=2048, repeats=5,
                                trajectory=Path(tmp) / "trajectory.jsonl")
     res, row = out["res"], out["res"]["scenarios"]["heavy_tail"]
-    want = _expected_launches(cfg, out["prefills"])
+    want = _expected_launches(cfg, out["prefills"] + out["captures"])
     if out["launches"] != want:
-        raise AssertionError(f"serve-bench launches {out['launches']}, expected {want}")
+        raise AssertionError(f"serve-bench launches {out['launches']}, expected {want} = "
+                             f"({out['prefills']} prefills + {out['captures']} captures) x "
+                             f"{cfg.n_layers} layers")
     print(f"serve-bench: repro_torch.bench.serve_scenarios, {cfg.name} full width, bf16, "
           f"capacity 2048, heavy_tail ({row['n_requests']} requests, seed 7 + 17), settings "
           f"{res['settings']}, 1 warm-up + {res['repeats']} repeats per scheduler, on {card}")
@@ -1402,7 +1550,9 @@ def phase_serve_bench(device, card: str, serve: dict) -> dict:
           f"{v['p_value']}) -- printed, not gated; equal token totals gated; the twin's "
           f"wall {res['wall_s']:.1f} s")
     print(f"serve-bench: {len(out['rows'])} records appended to a temporary trajectory; "
-          f"launches {out['launches']} (= {out['prefills']} prefills x {cfg.n_layers} layers)")
+          f"launches {out['launches']} (= ({out['prefills']} prefills + {out['captures']} "
+          f"prefill captures) x {cfg.n_layers} layers; every server captures its own graphs, "
+          f"so each timed replay includes its servers' captures)")
 
     arrivals = twin.scenario_arrivals(7, quick=False)["heavy_tail"]
     n0 = {name: fn.launches for name, fn in _kernels().items()}
@@ -1517,17 +1667,28 @@ def main() -> int:
                                   widths=[2, 8, 32, 64, 128, 256, 512, 1024],
                                   label="serve-hybrid"),
     }
+    _memory("serve phases", t_start)
     for name in serves:
         phase_model(device, name)
+    _memory("model", t_start)
+    graphs = phase_graphs(device, card, serves)
+    _memory("graphs", t_start)
     timing = phase_timing(device)
     timing_ssd = phase_timing_ssd(device)
     timing_rms = phase_timing_rmsnorm(device)
+    _memory("timing", t_start)
     campaign = phase_campaign(device, card)
-    paths = {"online": phase_online(device, card, serves["olmo-1b"]),
-             "serve-bench": phase_serve_bench(device, card, serves["olmo-1b"]),
-             "serving-grid": phase_serving_grid(device, card)}
-    phase_profile(device, serves["olmo-1b"], card)
-    phase_profile(device, serves["mamba2-780m"], card)
+    _memory("campaign", t_start)
+    paths = {"graphs": graphs, "online": phase_online(device, card, serves["olmo-1b"])}
+    _memory("online", t_start)
+    paths["serve-bench"] = phase_serve_bench(device, card, serves["olmo-1b"])
+    _memory("serve-bench", t_start)
+    paths["serving-grid"] = phase_serving_grid(device, card)
+    _memory("serving-grid", t_start)
+    for step in ("eager", "graph"):
+        phase_profile(device, serves["olmo-1b"], card, step)
+        phase_profile(device, serves["mamba2-780m"], card, step)
+    _memory("profile", t_start)
 
     def launches(kernel_name):
         by_path = {name: out["launches"][kernel_name] for name, out in serves.items()

@@ -1,7 +1,8 @@
-"""The port's serving benchmarks: twins of the reference's
-``benchmarks/serve_scenarios.py`` and ``benchmarks/online_tuning.py``, their
-runner with its regression gate (:mod:`.runner`) and their smoke checks
-(:mod:`.check`).  Everything they write goes under :data:`BENCH_ROOT`, the
+"""The port's benchmarks: twins of the reference's
+``benchmarks/serve_scenarios.py``, ``benchmarks/online_tuning.py``,
+``benchmarks/kernel_autotune.py`` and ``benchmarks/configstore_roundtrip.py``,
+their runner with its regression gate (:mod:`.runner`) and their smoke
+checks (:mod:`.check`).  Everything they write goes under :data:`BENCH_ROOT`, the
 repository's ``results/torch/bench/``, never into the reference's
 ``results/bench/``.
 """
@@ -15,6 +16,16 @@ import torch
 BENCH_ROOT = Path(__file__).resolve().parents[3] / "results" / "torch" / "bench"
 
 
+def require_device(device: Union[str, torch.device]) -> torch.device:
+    """``device``, or a RuntimeError when it is CUDA and no card is there:
+    a benchmark never falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a benchmark on the card found no CUDA device; "
+                           "pass device='cpu' to run it on the CPU")
+    return device
+
+
 def load_model(model: str, *, device: Union[str, torch.device],
                seed: int) -> Tuple[Dict[str, Any], Any]:
     """(params, cfg) of a served model with random weights from ``seed``: at
@@ -26,10 +37,7 @@ def load_model(model: str, *, device: Union[str, torch.device],
     from ..configs import get_config
     from ..models import model as M
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("a benchmark on the card found no CUDA device; "
-                           "pass device='cpu' to run it on the CPU")
+    device = require_device(device)
     cfg = get_config(model)
     cfg = cfg.reduced().validate() if device.type == "cpu" else cfg
     gen = torch.Generator(device=device).manual_seed(seed)

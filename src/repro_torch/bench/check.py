@@ -1,10 +1,13 @@
 """Smoke assertions over the twins' benchmark JSON.
 
-The port of ``benchmarks/check_bench.py::check_serve_scenarios`` and
-``::check_online_tuning``, reading ``serve_scenarios.json`` and
-``online_tuning.json`` from a bench directory (by default
-:data:`~repro_torch.bench.BENCH_ROOT`).  The runner calls them after each
-twin; a failing assertion points at a line here.
+The port of ``benchmarks/check_bench.py``'s ``check_serve_scenarios``,
+``check_online_tuning``, ``check_kernel_autotune`` and
+``check_configstore_resolve``, reading ``serve_scenarios.json``,
+``online_tuning.json``, ``kernel_autotune.json`` and
+``configstore_resolve.json`` from a bench directory (by default
+:data:`~repro_torch.bench.BENCH_ROOT`).  Each check is filed under the name
+of the twin that writes its JSON; the runner calls it after that twin, and
+a failing assertion points at a line here.
 
     PYTHONPATH=src python -m repro_torch.bench.check serve_scenarios online_tuning --expect-quick
 """
@@ -82,9 +85,32 @@ def check_online_tuning(expect_quick: Optional[bool] = None,
     _expect(v["candidate_location"] > v["baseline_location"], v)
 
 
+def check_kernel_autotune(expect_quick: Optional[bool] = None,
+                          bench_dir: Any = BENCH_ROOT) -> None:
+    d = _load("kernel_autotune", expect_quick, bench_dir)
+    _expect(d["default_us"] > 0 and d["best_us"] > 0, d)
+    _expect(d["best_us"] <= d["default_us"], "tuned config slower than default")
+    _expect(d["trace"], "no tuning trace recorded")
+    _expect(len(d["best_samples_us"]) > 0 and len(d["default_samples_us"]) > 0, d)
+
+
+def check_configstore_resolve(expect_quick: Optional[bool] = None,
+                              bench_dir: Any = BENCH_ROOT) -> None:
+    d = _load("configstore_resolve", expect_quick, bench_dir)
+    _expect(d["fresh_process_resolution"] == "ok", d.get("fresh_process_resolution"))
+    wls = [c["workload"] for c in d["contexts"].values()]
+    _expect(len(wls) == 2 and len(set(wls)) == 2, wls)
+    _expect(d["resolve"]["cached_ns_per_lookup"] > 0, d["resolve"])
+    _expect(d["resolve"]["uncached_first_ms"] > 0, d["resolve"])
+    _expect(len(d["resolve"]["cached_ns_samples"]) > 0, d["resolve"])
+    _expect(len(d["resolve"]["uncached_ms_samples"]) >= 2, d["resolve"])
+
+
 CHECKS = {
     "serve_scenarios": check_serve_scenarios,
     "online_tuning": check_online_tuning,
+    "kernel_autotune": check_kernel_autotune,
+    "configstore_roundtrip": check_configstore_resolve,
 }
 
 

@@ -1,6 +1,8 @@
 """The port's benchmark runner: one protocol, one record schema, one gate.
 
-The port of ``benchmarks/runner.py`` over the port's twins only.  Every
+The port of ``benchmarks/runner.py`` over the port's twins only
+(``serve_scenarios``, ``online_tuning``, ``kernel_autotune``,
+``configstore_roundtrip``).  Every
 registered benchmark exposes ``bench(quick, seed, device=, out_dir=) ->
 [BenchRecord]``; the runner runs them, checks each twin's JSON
 (:mod:`.check`), gates each record against its stored context-keyed
@@ -53,6 +55,18 @@ def _serve_scenarios(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
 @register("online_tuning")
 def _online_tuning(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
     from . import online_tuning as m
+    return m.bench(quick=quick, seed=seed, **kw)
+
+
+@register("kernel_autotune")
+def _kernel_autotune(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
+    from . import kernel_autotune as m
+    return m.bench(quick=quick, seed=seed, **kw)
+
+
+@register("configstore_roundtrip")
+def _configstore_roundtrip(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
+    from . import configstore_roundtrip as m
     return m.bench(quick=quick, seed=seed, **kw)
 
 

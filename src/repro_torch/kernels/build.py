@@ -2,11 +2,14 @@
 
 Each kernel source ``src/repro_torch/csrc/<name>.cu`` exposes a plain C
 entry point.  :func:`build` compiles it with ``nvcc`` for Hopper
-(``sm_90a``) into ``build/kernels/<name>-<hash>.so`` under the repository
-root, keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused.  All missing libraries of one call
-compile in parallel, one ``nvcc`` per source.  :func:`load` opens a built
-library with ``ctypes``.
+(``sm_90a``) into ``build/kernels/<hw>/<sw>/<name>-<hash>.so`` under the
+repository root: the port's persistent cache, namespaced by this process's
+hardware and software fingerprints
+(:func:`repro_torch.core.compilecache.persistent_cache_dir`) and keyed by
+a hash of the source, the flags and ``nvcc --version``, so an edited
+source or another compiler rebuilds and an unchanged one is reused.  All
+missing libraries of one call compile in parallel, one ``nvcc`` per
+source.  :func:`load` opens a built library with ``ctypes``.
 
 Nothing here runs at import: this module is imported on machines with no
 CUDA toolkit, where only the kernels' plain versions run.
@@ -14,6 +17,7 @@ CUDA toolkit, where only the kernels' plain versions run.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,10 +26,12 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build", "load"]
+from ..core.compilecache import persistent_cache_dir
+
+__all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "build_dir", "library_path", "build", "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -39,10 +45,23 @@ def _nvcc() -> str:
     return found
 
 
+@functools.lru_cache(maxsize=1)
+def nvcc_version() -> str:
+    """``nvcc --version``, part of every library's hash."""
+    return subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, timeout=60,
+                          check=True).stdout
+
+
+def build_dir() -> Path:
+    """``build/kernels/<hw>/<sw>``: libraries built under other hardware or
+    software coordinates are never loaded."""
+    return persistent_cache_dir(BUILD_ROOT)
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode() + nvcc_version().encode()
+    return build_dir() / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:
@@ -57,7 +76,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     todo = {n: p for n, p in out.items() if not p.exists()}
     if not todo:
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for n, p in todo.items():

@@ -2,7 +2,8 @@
 
 The port of ``repro/launch/microbench.py``: raw per-call samples in
 microseconds (the feed of :mod:`repro_torch.core.stats` and the campaign
-gate), their median, and a memo of built candidates.
+gate), their median, and autotune candidates built through the step
+registry (:mod:`repro_torch.core.compilecache`).
 
 On the card a sample is the per-call time between two CUDA events around
 ``inner`` back-to-back calls, after a warm-up and a
@@ -19,24 +20,25 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, List, Mapping
 
 import numpy as np
 import torch
 
+from ..core.compilecache import CachedStep, cached_step
+
 __all__ = ["candidate", "median_time_us", "time_samples_us"]
 
-_CANDIDATES: Dict[Tuple[str, str, Tuple[Tuple[str, str], ...]], Callable] = {}
-
-
 def candidate(component: str, fn: Callable[..., Any], settings: Mapping[str, Any],
-              workload: str = "") -> Callable:
-    """One autotune candidate, memoized by (component, workload, settings):
-    an optimizer revisiting a config gets the callable it built before.
-    PyTorch runs eagerly, so there is no compilation to cache; the memo
-    keeps the reference's contract (the first build of a key wins)."""
-    key = (component, workload, tuple(sorted((k, repr(v)) for k, v in settings.items())))
-    return _CANDIDATES.setdefault(key, fn)
+              workload: str = "") -> CachedStep:
+    """One autotune candidate through the step registry, under
+    ``autotune.<component>`` and the context (workload, settings), as the
+    reference's ``jit_candidate``: an optimizer revisiting a config gets the
+    step it built before.  Calling it runs ``fn`` eagerly: a candidate is
+    timed on the inputs it is given, and its objective is the kernel's own
+    time, which a graph of one launch would not change."""
+    ctx = tuple(sorted((k, repr(v)) for k, v in settings.items()))
+    return cached_step(fn, key=f"autotune.{component}", context=(workload, ctx))
 
 
 def _on_cuda(args) -> bool:

@@ -9,9 +9,11 @@ draws that layout and unstacks it.
 
 Serving state is a list of per-layer cache dicts: ``{"k", "v"}`` of shape
 (B, C, K, hd) for attention, ``{"ssm": {"conv", "ssd"}}`` for an SSM mixer,
-all three for a hybrid layer.  :func:`decode_step` updates K/V in place and
-replaces each SSM state; :func:`merge_slot` writes one slot in place.
-``loss_fn`` comes with training.
+all three for a hybrid layer.  :func:`decode_step` updates every leaf in
+place (K/V rows and each SSM state), so a captured decode step can hold the
+state; :func:`merge_slot` writes one slot in place, and :func:`install_slot`
+writes slots named by a device tensor together with their ``(tok, pos,
+done)``.  ``loss_fn`` comes with training.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from .transformer import (FAMILIES, block_specs, decode_stack, forward_stack, pr
 
 __all__ = [
     "param_specs", "init_params", "unstack_blocks", "forward", "logits_fn", "cache_specs",
-    "init_cache", "cache_batch_axes", "merge_slot", "prefill", "decode_step",
+    "init_cache", "cache_batch_axes", "merge_slot", "install_slot", "prefill", "decode_step",
 ]
 
 
@@ -147,6 +149,31 @@ def merge_slot(big: List[Dict[str, Any]], small: List[Dict[str, Any]], slot: int
     return big
 
 
+def _install(big: Any, small: Any, slots: torch.Tensor, axes: Any) -> None:
+    if isinstance(axes, dict):
+        for name, ax in axes.items():
+            _install(big[name], small[name], slots, ax)
+    else:
+        big.index_copy_(axes, slots, small.to(big.dtype))
+
+
+def install_slot(big: List[Dict[str, Any]], small: List[Dict[str, Any]], slots: torch.Tensor,
+                 tok: torch.Tensor, pos: torch.Tensor, done: torch.Tensor, logits: torch.Tensor,
+                 width: int, *, batch_axes: List[Dict[str, Any]]) -> None:
+    """Admit prefilled rows, IN PLACE: row ``i`` of ``small`` goes to slot
+    ``slots[i]`` of every cache leaf (``index_copy_`` along its batch axis),
+    and the slot's registers become ``tok`` = the argmax of row ``i`` of
+    the prefill ``logits``, ``pos`` = ``width``, ``done`` = False.  The port
+    of the reference server's ``_install``; ``slots`` is a device tensor, so
+    one captured program serves every slot.  Values equal :func:`merge_slot`
+    plus the three register writes."""
+    for b_layer, s_layer, ax_layer in zip(big, small, batch_axes):
+        _install(b_layer, s_layer, slots, ax_layer)
+    tok.index_copy_(0, slots, torch.argmax(logits, -1).to(tok.dtype))
+    pos.index_fill_(0, slots, width)
+    done.index_fill_(0, slots, False)
+
+
 def prefill(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             cache_capacity: int) -> Tuple[torch.Tensor, List[Dict[str, Any]], int]:
     """Process a prompt; returns (last-token logits (B, V), caches, pos = S)."""
@@ -160,7 +187,8 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """One decode step: consumes ``token`` (B,) at position ``pos`` (an int,
     or a (B,) tensor of per-slot positions) and returns (next-token logits
-    (B, V), caches).  Rows are independent: each follows its own position."""
+    (B, V), caches).  Rows are independent: each follows its own position.
+    ``caches`` is updated in place and returned."""
     h, caches = decode_stack(params["blocks"], _embed(params, token[:, None]), caches, pos, cfg)
     h = apply_norm(params["ln_f"], h, cfg)
     return logits_fn(params, cfg, h)[:, 0], caches

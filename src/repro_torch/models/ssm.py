@@ -132,7 +132,10 @@ def apply_ssm(params: Dict[str, torch.Tensor], x: torch.Tensor,
 def apply_ssm_decode(params: Dict[str, torch.Tensor], x: torch.Tensor,
                      state: Dict[str, torch.Tensor], cfg: ModelConfig,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One token. x (B, 1, d) → (B, 1, d) and the new {"conv", "ssd"}."""
+    """One token. x (B, 1, d) → (B, 1, d) and ``state``, whose {"conv",
+    "ssd"} tensors now hold the new state.  They are written IN PLACE (the
+    reference returns new arrays), as the K/V rows are, so a captured decode
+    step reads and writes the same buffers at every replay."""
     z, dt, u, conv_w = _conv_input(params, x, cfg)                 # u: (B, 1, C)
     uc = _causal_conv(u, conv_w, state["conv"])
     new_conv = torch.cat([state["conv"].to(u.dtype), u], dim=1)[:, 1:]
@@ -141,4 +144,6 @@ def apply_ssm_decode(params: Dict[str, torch.Tensor], x: torch.Tensor,
     y, ssd_state = ssd_ops.ssd_decode_step(state["ssd"], xs1, dtp, a, bs1, cs1, d)
     y = _gated_norm(y, z[:, 0], params["norm_scale"])
     out = y.reshape(y.shape[0], -1) @ params["wo"].reshape(-1, cfg.d_model)
-    return out[:, None], {"conv": new_conv, "ssd": ssd_state}
+    state["conv"].copy_(new_conv)
+    state["ssd"].copy_(ssd_state)
+    return out[:, None], state

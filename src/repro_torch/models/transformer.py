@@ -136,19 +136,18 @@ def prefill_stack(layers: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfi
 def decode_stack(layers: List[Dict[str, Any]], x: torch.Tensor,
                  caches: List[Dict[str, Any]], pos: Union[int, torch.Tensor],
                  cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """One-token pass over the layer stack.  K/V caches are updated in place
-    (see :func:`apply_attn_decode`); an SSM layer's new state replaces the
-    entry in its layer's cache dict."""
+    """One-token pass over the layer stack.  Every cache leaf is updated in
+    place (see :func:`apply_attn_decode` and :func:`apply_ssm_decode`)."""
     kind = cfg.family
     for lp, cache in zip(layers, caches):
         xn = apply_norm(lp["ln1"], x, cfg)
         if kind == "ssm":
-            y, cache["ssm"] = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
+            y, _ = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
             x = x + y
             continue
         h, _ = apply_attn_decode(lp["attn"], xn, cache, pos, cfg)
         if kind == "hybrid":
-            s, cache["ssm"] = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
+            s, _ = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
             h = (h + s) / 2.0
         x = x + h
         x = x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)

@@ -29,21 +29,43 @@ Scheduler contract (the reference's):
   * Greedy decode; ``eos_id < 0`` disables EOS.
 
 Host syncs: :func:`_host_fetch` is the only device→host read, one per
-``sync_interval`` decode steps.  Slot indices stay Python ints, the first
-token of a prefill stays a device tensor written into its slot, and host
-data goes to the device only as copies (prompt tokens, the done mask).
-PyTorch runs eagerly, so the reference's compiled steps become plain calls.
+``sync_interval`` decode steps.  The scheduler keeps slot indices as Python
+ints, the first token of a prefill stays a device tensor written into its
+slot, and host data goes to the device only as copies (prompt tokens, the
+slot index, the done mask).
+
+Compiled steps.  The reference builds four sites through ``cached_jit``;
+here each goes through :func:`repro_torch.core.compilecache.cached_step`
+with the reference's key and context: ``serve.prefill``,
+``serve.install_slot``, ``serve.decode_step`` (gang) and
+``serve.decode_fused`` (decode, argmax, EOS folded into ``done``,
+``pos + 1``).  Every step reads and writes the server's static buffers in
+place: the per-slot ``tok``/``pos``/``done`` registers, the batched caches,
+one prompt buffer per (rows, width bucket), and a ``(64, max_batch)``
+history of each decode step's input token, which the sync reads back (a
+static ``tok`` is overwritten by the next step, so a list of references to
+it would read the last step's value ``sync_interval`` times).  An admission
+is one program: the prefill and the install of its rows, one per (width
+bucket, rows), rows 1 for a continuous slot and ``max_batch`` for a gang
+batch.  ``step="graph"`` (the default on CUDA) runs each program as a CUDA
+graph per shape class, owned by this server (:class:`compilecache.Graphs`);
+``step="eager"`` runs the same bodies on the same buffers without capture
+(the CPU's only path).  The hot-swap knobs need no recapture: no step reads
+them.  The tuned settings the kernels read are resolved when a graph is
+captured (see :mod:`repro_torch.core.compilecache`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Union
+from typing import Any, Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core.compilecache import Graphs, cached_step, config_signature
 from ..core.configstore import bucket_pow2
 from ..core.registry import MetricSpec, tunable_component
 from ..core.tunable import Int
@@ -51,13 +73,14 @@ from ..models import model as M
 from ..models.config import ModelConfig
 
 __all__ = ["serve_settings", "ServeSettings", "BatchedServer", "workload_signature",
-           "HOT_SWAP_KNOBS", "COMPONENT"]
+           "HOT_SWAP_KNOBS", "COMPONENT", "STEPS", "HISTORY"]
 
 # Tunables swappable on a LIVE server between steps (see apply_config): pure
 # scheduling knobs.  max_batch (and capacity) size the device state built at
 # __init__ — changing them means building a new server.
 HOT_SWAP_KNOBS = ("admission", "prefill_chunk", "sync_interval", "max_new_tokens")
 COMPONENT = "torch_serve_batching"
+STEPS = ("graph", "eager")
 
 
 @tunable_component(
@@ -77,11 +100,64 @@ class ServeSettings:
 
 
 serve_settings = ServeSettings()
+# decode steps one sync can read back from the history: sync_interval's high
+HISTORY = ServeSettings.mlos_meta.space["sync_interval"].high
 
 
 def workload_signature(family: str, capacity: int) -> str:
     """Model family × bucketed cache capacity."""
     return f"{family}_c{bucket_pow2(capacity)}"
+
+
+def resolve_step(step: Optional[str], device: torch.device) -> str:
+    """``step`` as the server will run it: ``None`` means ``"graph"`` on
+    CUDA and ``"eager"`` elsewhere; a graph anywhere but CUDA raises."""
+    step = step or ("graph" if device.type == "cuda" else "eager")
+    if step not in STEPS:
+        raise ValueError(f"unknown step {step!r}; choose one of {STEPS}")
+    if step == "graph" and device.type != "cuda":
+        raise ValueError(f"step='graph' captures CUDA graphs; the server is on {device}")
+    return step
+
+
+# ---------------------------------------------------------------- step bodies
+# Module-level functions of their arguments (and of the partial's config),
+# so the registry's steps hold no server: a server's buffers live as long
+# as the server does.
+def _prefill(params: Dict[str, Any], tokens: torch.Tensor, *, cfg: ModelConfig, capacity: int):
+    return M.prefill(params, cfg, tokens, capacity)
+
+
+def _admit(params, tokens, slots, caches, tok, pos, done, *, prefill, install) -> None:
+    """Prefill ``tokens`` and install its rows into ``slots`` of the state."""
+    logits, small, width = prefill(params, tokens)
+    install(caches, small, slots, tok, pos, done, logits, width)
+
+
+def _gang_decode(params, tok, caches, pos, *, cfg: ModelConfig) -> None:
+    logits, _ = M.decode_step(params, cfg, tok, caches, pos)
+    tok.copy_(torch.argmax(logits, -1))
+    pos.add_(1)
+
+
+def _decode_fused(params, tok, caches, pos, done, hist, hist_row, *, cfg: ModelConfig,
+                  eos_id: int) -> None:
+    """Record the step's input token in the history, decode, argmax, fold
+    EOS into ``done``, ``pos + 1``; all in place."""
+    hist.index_copy_(0, hist_row, tok[None])
+    hist_row.add_(1)
+    logits, _ = M.decode_step(params, cfg, tok, caches, pos)
+    nxt = torch.argmax(logits, -1)
+    done.logical_or_(nxt == eos_id)
+    tok.copy_(nxt)
+    pos.add_(1)
+
+
+def _check_interval(n: int) -> int:
+    if n > HISTORY:
+        raise ValueError(f"sync_interval {n} > {HISTORY}: a sync reads back at most "
+                         f"{HISTORY} decode steps")
+    return n
 
 
 def _host_fetch(x: torch.Tensor) -> np.ndarray:
@@ -115,18 +191,22 @@ class BatchedServer:
     ``serve_settings.settings_for(workload)``.  ``emitter`` is any object
     with ``.emit(dict)``; it receives rolling tokens/s, p50 latency, queue
     depth and live slots at each sync and the run's totals at its end.
-    ``params`` must already live on ``device``.
+    ``params`` must already live on ``device``.  ``step`` chooses how the
+    compiled steps run (see the module docstring): ``"graph"``, the
+    default on CUDA, or ``"eager"``; it is not a tunable.
     """
 
     def __init__(self, params: Dict[str, Any], cfg: ModelConfig, capacity: int = 256,
                  eos_id: int = 1, workload: Optional[str] = None,
                  mode: str = "continuous", settings: Optional[Dict[str, int]] = None,
-                 emitter: Optional[Any] = None, device: Union[str, torch.device] = "cuda"):
+                 emitter: Optional[Any] = None, device: Union[str, torch.device] = "cuda",
+                 step: Optional[str] = None):
         if mode not in ("continuous", "gang"):
             raise ValueError(f"unknown serve mode {mode!r}")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, server on {self.device}")
+        self.step_mode = resolve_step(step, self.device)
         self.params, self.cfg, self.capacity, self.eos_id = params, cfg, capacity, eos_id
         self.mode = mode
         self.emitter = emitter
@@ -137,19 +217,47 @@ class BatchedServer:
         self.max_new_tokens = int(o.get("max_new_tokens", s["max_new_tokens"]))
         self.admission = int(o.get("admission", s["admission"]))
         self.prefill_chunk = int(o.get("prefill_chunk", s["prefill_chunk"]))
-        self.sync_interval = int(o.get("sync_interval", s["sync_interval"]))
+        self.sync_interval = _check_interval(int(o.get("sync_interval", s["sync_interval"])))
         self._axes = M.cache_batch_axes(cfg, self.max_batch, capacity)
+
+        # the reference's four compiled sites, keyed and contexted as there
+        sig = config_signature(cfg)
+        self._prefill_step = cached_step(
+            functools.partial(_prefill, cfg=cfg, capacity=capacity),
+            key="serve.prefill", context=(sig, self.workload, capacity))
+        self._install_step = cached_step(
+            functools.partial(M.install_slot, batch_axes=self._axes),
+            key="serve.install_slot", context=(sig, self.workload, capacity, self.max_batch))
+        self._gang_step = cached_step(
+            functools.partial(_gang_decode, cfg=cfg),
+            key="serve.decode_step", context=(sig, self.workload, capacity, self.max_batch))
+        self._fused_step = cached_step(
+            functools.partial(_decode_fused, cfg=cfg, eos_id=eos_id),
+            key="serve.decode_fused",
+            context=(sig, self.workload, capacity, self.max_batch, eos_id))
+        self._admit_fn = functools.partial(_admit, prefill=self._prefill_step,
+                                           install=self._install_step)
+        self.graphs = Graphs(capture=self.step_mode == "graph")
+        self._admit_steps: Dict[Tuple[int, int], Any] = {}   # (rows, width) -> bound step
+        self._decode_bound = None
 
         self.queue: Deque[_Request] = deque()
         self.results: Dict[int, _Request] = {}
         self._next_rid = 0
-        # per-slot device state (continuous mode); empty slots start done
+        # per-slot device state; empty slots start done.  Static buffers: the
+        # steps write them in place and the server never rebinds them.
         self._slot_req: List[Optional[_Request]] = [None] * self.max_batch
         self._free: List[int] = list(range(self.max_batch))
         self._caches = None                 # lazily built on first admission
-        self._tok = torch.zeros((self.max_batch,), dtype=torch.long, device=self.device)
-        self._pos = torch.zeros((self.max_batch,), dtype=torch.long, device=self.device)
-        self._done = torch.ones((self.max_batch,), dtype=torch.bool, device=self.device)
+        dev = self.device
+        self._tok = torch.zeros((self.max_batch,), dtype=torch.long, device=dev)
+        self._pos = torch.zeros((self.max_batch,), dtype=torch.long, device=dev)
+        self._done = torch.ones((self.max_batch,), dtype=torch.bool, device=dev)
+        self._hist = torch.zeros((HISTORY, self.max_batch), dtype=torch.long, device=dev)
+        self._hist_row = torch.zeros((1,), dtype=torch.long, device=dev)
+        self._slot = torch.zeros((1,), dtype=torch.long, device=dev)
+        self._all_slots = torch.arange(self.max_batch, device=dev)
+        self._prompts: Dict[Tuple[int, int], torch.Tensor] = {}
         self.decode_steps = 0               # lifetime counters
         self.decode_syncs = 0
         self.prefill_calls = 0
@@ -197,9 +305,29 @@ class BatchedServer:
             b = min(b, self.capacity - width)  # full cache must not wrap
         return max(1, b)
 
-    def _prefill(self, toks: torch.Tensor):
+    def _ensure_state(self) -> None:
+        if self._caches is None:
+            self._caches = M.init_cache(self.cfg, self.max_batch, self.capacity,
+                                        device=self.device)
+
+    def _run_admission(self, reqs: List[_Request], rows: int, width: int,
+                       slots: torch.Tensor) -> None:
+        """One admission program: prefill ``reqs`` (padded to ``rows``) at
+        ``width`` and install row i into ``slots[i]`` of the state."""
+        self._ensure_state()
+        key = (rows, width)
+        prompts = self._prompts.get(key)
+        if prompts is None:
+            prompts = self._prompts[key] = torch.zeros((rows, width), dtype=torch.long,
+                                                       device=self.device)
+        prompts.copy_(self._pad_prompts(reqs, rows, width))
+        bound = self._admit_steps.get(key)
+        if bound is None:
+            bound = self._admit_steps[key] = self.graphs.bind(
+                "serve.prefill", self._admit_fn, self.params, prompts, slots, self._caches,
+                self._tok, self._pos, self._done)
+        bound()
         self.prefill_calls += 1
-        return M.prefill(self.params, self.cfg, toks, self.capacity)
 
     def _admit(self) -> int:
         """Prefill waiting requests into free slots; bounded per step by the
@@ -218,28 +346,22 @@ class BatchedServer:
         return admitted
 
     def _prefill_into(self, slot: int, r: _Request, width: int) -> None:
-        if self._caches is None:
-            self._caches = M.init_cache(self.cfg, self.max_batch, self.capacity,
-                                        device=self.device)
-        logits, small, _ = self._prefill(self._pad_prompts([r], 1, width))
         # install IN PLACE: the slot's cache rows and (tok, pos, done)
         # registers.  The first token stays on device: it flows into the
         # decode stream and reaches the host with the next batched sync.
-        M.merge_slot(self._caches, small, slot, self._axes)
-        self._tok[slot] = torch.argmax(logits[0], -1)
-        self._pos[slot] = width
-        self._done[slot] = False
+        self._slot.fill_(slot)
+        self._run_admission([r], 1, width, self._slot)
         r.slot = slot
         r.eff_budget = self._eff_budget(r, width)
         self._slot_req[slot] = r
 
     def _decode(self) -> None:
         """One fused decode step over every slot; EOS tracking stays on device."""
-        logits, self._caches = M.decode_step(self.params, self.cfg, self._tok, self._caches,
-                                             self._pos)
-        self._tok = torch.argmax(logits, -1)
-        self._done = self._done | (self._tok == self.eos_id)
-        self._pos = self._pos + 1
+        if self._decode_bound is None:
+            self._decode_bound = self.graphs.bind(
+                "serve.decode_fused", self._fused_step, self.params, self._tok, self._caches,
+                self._pos, self._done, self._hist, self._hist_row)
+        self._decode_bound()
 
     # ------------------------------------------------------- continuous loop
     def begin_run(self, max_new_tokens: Optional[int] = None) -> None:
@@ -275,6 +397,8 @@ class BatchedServer:
         if bad:
             raise ValueError(f"not hot-swappable on a live server: {bad} "
                              f"(allowed: {list(HOT_SWAP_KNOBS)})")
+        if "sync_interval" in settings:
+            _check_interval(max(1, int(settings["sync_interval"])))
         for k, v in settings.items():
             setattr(self, k, max(1, int(v)))
 
@@ -285,23 +409,23 @@ class BatchedServer:
         self._admit()
         if not self._n_live():
             return []
-        emitted = []
-        for _ in range(self.sync_interval):
-            # each step CONSUMES self._tok, so the stream of step inputs is
-            # exactly the generated-token stream, the prefill's first token
-            # included, with no extra host reads
-            emitted.append(self._tok)
+        n = self.sync_interval
+        for _ in range(n):
+            # each step CONSUMES self._tok and records it in the history, so
+            # the history's rows are exactly the generated-token stream, the
+            # prefill's first token included, with no extra host reads
             self._decode()
             self.decode_steps += 1
             self._run_steps += 1
-        finished = self._sync(emitted)
+        finished = self._sync(n)
         self._emit_rolling()
         return finished
 
-    def _sync(self, emitted: List[torch.Tensor]) -> List[_Request]:
+    def _sync(self, n: int) -> List[_Request]:
         self.decode_syncs += 1
         self._run_syncs += 1
-        toks_h = _host_fetch(torch.stack(emitted))            # (sync_interval, max_batch)
+        toks_h = _host_fetch(self._hist[:n])                  # (sync_interval, max_batch)
+        self._hist_row.zero_()
         now = time.perf_counter()
         finished: List[_Request] = []
         for slot, r in enumerate(self._slot_req):
@@ -320,7 +444,7 @@ class BatchedServer:
             # vector in ONE batched write (a host→device copy)
             mask = np.zeros((self.max_batch,), bool)
             mask[[r.slot for r in finished]] = True
-            self._done = self._done | torch.from_numpy(mask).to(self.device)
+            self._done.logical_or_(torch.from_numpy(mask).to(self.device))
         return finished
 
     def _finish(self, r: _Request, now: float) -> None:
@@ -364,10 +488,9 @@ class BatchedServer:
             live = [self.queue.popleft()
                     for _ in range(min(self.max_batch, len(self.queue)))]
             width = self._width_of(max(len(r.prompt) for r in live))
-            logits, caches, pos = self._prefill(self._pad_prompts(live, self.max_batch, width))
-            tok = torch.argmax(logits, -1)
+            self._run_admission(live, self.max_batch, width, self._all_slots)
             budgets = [self._eff_budget(r, width) for r in live]
-            t_host = _host_fetch(tok)
+            t_host = _host_fetch(self._tok)
             self.decode_syncs += 1
             self._run_syncs += 1
             for i, r in enumerate(live):
@@ -378,12 +501,14 @@ class BatchedServer:
             for _ in range(max(budgets) - 1):
                 if all(r.done for r in live):
                     break
-                logits, caches = M.decode_step(self.params, self.cfg, tok, caches, pos)
-                tok = torch.argmax(logits, -1)
-                pos = pos + 1
+                if self._decode_bound is None:
+                    self._decode_bound = self.graphs.bind(
+                        "serve.decode_step", self._gang_step, self.params, self._tok,
+                        self._caches, self._pos)
+                self._decode_bound()
                 self.decode_steps += 1
                 self._run_steps += 1
-                t_host = _host_fetch(tok)     # the per-token sync the
+                t_host = _host_fetch(self._tok)   # the per-token sync the
                 self.decode_syncs += 1        # continuous engine amortizes
                 self._run_syncs += 1
                 for i, r in enumerate(live):

@@ -30,7 +30,8 @@ from repro.core import baseline as jbaseline
 from repro.core import rpi as jrpi
 from repro.core import tracking as jtracking
 from repro.runtime import online as jonline
-from repro_torch.bench import BENCH_ROOT, check, online_tuning, runner, serve_scenarios
+from repro_torch.bench import (BENCH_ROOT, check, configstore_roundtrip, kernel_autotune,
+                               online_tuning, runner, serve_scenarios)
 from repro_torch.core import baseline, configstore, rpi, tracking
 from repro_torch.core import campaign as tcampaign
 from repro_torch.core.baseline import BenchRecord
@@ -161,7 +162,8 @@ def test_runner_gate_fails_on_a_planted_2x_regression(tmp_path, monkeypatch):
 
 def test_runner_cli_lists_the_twins_and_check_rejects_a_bad_record(tmp_path, capsys):
     assert runner.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["serve_scenarios", "online_tuning"]
+    assert capsys.readouterr().out.split() == ["serve_scenarios", "online_tuning",
+                                               "kernel_autotune", "configstore_roundtrip"]
     bad = {"quick": True, "scenarios": {"heavy_tail": {
         mode: {"tokens_per_s": [1.0, 2.0], "p99_latency_s": [0.1, 0.1], "total_tokens": t}
         for mode, t in (("gang", 10.0), ("continuous", 11.0))}},
@@ -174,11 +176,61 @@ def test_runner_cli_lists_the_twins_and_check_rejects_a_bad_record(tmp_path, cap
 
 def test_twins_refuse_the_card_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for run in (serve_scenarios.run, online_tuning.run):
+    for run in (serve_scenarios.run, online_tuning.run, kernel_autotune.run):
         with pytest.raises(RuntimeError, match="CUDA"):
             run(quick=True, device="cuda")
-    for fn in (serve_scenarios.run, online_tuning.run, runner.run_and_gate):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        configstore_roundtrip.run(device="cuda")
+    for fn in (serve_scenarios.run, online_tuning.run, kernel_autotune.run,
+               configstore_roundtrip.run, kernel_autotune.bench, configstore_roundtrip.bench,
+               runner.run_and_gate):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+# ------------------------------------------------- kernel autotune, store round trip
+def test_kernel_autotune_quick_passes_the_references_check(tmp_path, monkeypatch):
+    """The twin at quick size on the CPU: the reference's shape, budget,
+    seed and optimizer, the port component's tiles; the JSON passes both
+    the port's check and the reference's (``check_bench.check_kernel_autotune``)."""
+    recs = kernel_autotune.bench(quick=True, device="cpu", out_dir=tmp_path)
+    check.check_kernel_autotune(expect_quick=True, bench_dir=tmp_path)
+    d = json.loads((tmp_path / "kernel_autotune.json").read_text())
+    assert d["shape"] == kernel_autotune.QUICK_SHAPE and len(d["trace"]) == 5
+    assert d["space"] == {"impl": ["naive", "scan", "unrolled"], "block_q": [64, 128],
+                          "block_kv": [64, 128]}
+    assert kernel_autotune.space("cuda")["impl"].choices[-1] == "kernel"
+    assert [r.metric for r in recs] == ["tuned_us", "default_us"]
+    assert {r.context.component for r in recs} == {"torch_flash_attention"}
+    assert recs[0].context.workload == "b1q256k256d64"
+    assert recs[0].context.hardware.startswith("cpu:")
+    monkeypatch.setattr(jcheck_bench, "BENCH_DIR", tmp_path)     # the reference's own check
+    jcheck_bench.check_kernel_autotune(expect_quick=True)
+
+
+def test_configstore_roundtrip_quick_resolves_in_a_fresh_process(tmp_path, monkeypatch):
+    """Two contexts tuned, promoted into a store under the bench directory,
+    resolved back by a fresh interpreter that imports only ``repro_torch``
+    (under this process's ``cpu:`` fingerprint); the JSON passes both
+    checks, and the repository's default store is untouched."""
+    default_root = configstore.default_store().root
+    before = sorted(default_root.rglob("*.json")) if default_root.exists() else []
+    recs = configstore_roundtrip.bench(quick=True, device="cpu", out_dir=tmp_path)
+    check.check_configstore_resolve(expect_quick=True, bench_dir=tmp_path)
+    monkeypatch.setattr(jcheck_bench, "BENCH_DIR", tmp_path)     # the reference's own check
+    jcheck_bench.check_configstore_resolve(expect_quick=True)
+    d = json.loads((tmp_path / "configstore_resolve.json").read_text())
+    assert d["fresh_process_resolution"] == "ok"
+    assert d["fresh_process_hardware"] == configstore.hardware_fingerprint()
+    assert [c["workload"] for c in d["contexts"].values()] == ["b1q256k256d64", "b4q512k512d64"]
+    assert all(c["best_config"]["impl"] != "kernel" for c in d["contexts"].values())
+    assert Path(d["store"]) == tmp_path / "configstore"
+    entries = json.loads((tmp_path / "configstore" / "torch_flash_attention.json").read_text())
+    assert {e["context"]["hardware"] for e in entries["entries"]} == {
+        configstore.hardware_fingerprint()}
+    after = sorted(default_root.rglob("*.json")) if default_root.exists() else []
+    assert after == before
+    assert [r.metric for r in recs] == ["cached_ns_per_lookup", "uncached_first_ms"]
+    assert "kernel" in configstore_roundtrip.tuned_space("cuda")["impl"].choices
 
 
 # --------------------------------------------------------------- serving grid

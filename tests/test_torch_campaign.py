@@ -517,5 +517,8 @@ def test_microbench_samples_on_the_cpu():
     samples = microbench.time_samples_us(lambda t: t * 2, x, reps=4)
     assert len(samples) == 4 and all(s > 0 for s in samples)
     f = lambda t: t  # noqa: E731
-    assert microbench.candidate("c", f, {"a": 1}, "w") is f
-    assert microbench.candidate("c", lambda t: t, {"a": 1}, "w") is f
+    step = microbench.candidate("c", f, {"a": 1}, "w")
+    assert step.fn is f and step.key == "autotune.c"
+    assert microbench.candidate("c", lambda t: t, {"a": 1}, "w") is step
+    assert microbench.candidate("c", lambda t: t, {"a": 2}, "w") is not step
+    assert step(x) is x

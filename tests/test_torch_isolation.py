@@ -49,7 +49,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=env, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(_modules()) >= 39
+    assert len(_modules()) >= 42
 
 
 def test_the_ssm_slice_is_covered():
@@ -85,6 +85,20 @@ def test_the_online_slice_is_covered():
                 "core/baseline.py", "bench/__init__.py", "bench/serve_scenarios.py",
                 "bench/online_tuning.py", "bench/runner.py", "bench/check.py"):
         assert PORT / rel in SOURCES
+
+
+def test_the_captured_programs_slice_is_covered():
+    """The step registry, the new benchmark twins and the server built on
+    them are among what the checks here walk."""
+    assert {"repro_torch.core.compilecache", "repro_torch.bench.kernel_autotune",
+            "repro_torch.bench.configstore_roundtrip", "repro_torch.runtime.serve_loop",
+            "repro_torch.kernels.build"} <= set(_modules())
+    for rel in ("core/compilecache.py", "bench/kernel_autotune.py",
+                "bench/configstore_roundtrip.py"):
+        assert PORT / rel in SOURCES
+    # no environment switch in the registry or the build cache
+    for rel in ("core/compilecache.py", "kernels/build.py", "runtime/serve_loop.py"):
+        assert "os.environ" not in (PORT / rel).read_text() and "getenv" not in (PORT / rel).read_text(), rel
 
 
 def test_the_tensor_core_attention_is_covered():
@@ -126,13 +140,24 @@ def test_port_calls_no_library_attention():
 
 
 def test_entry_points_default_to_cuda():
+    """Every entry point runs on the card unless asked for the CPU, and the
+    server's steps default to CUDA graphs there."""
     import inspect
 
+    from repro_torch.bench import configstore_roundtrip, kernel_autotune
     from repro_torch.models import model
+    from repro_torch.runtime import serve_loop
     from repro_torch.runtime.serve_loop import BatchedServer
 
-    for fn in (model.init_params, model.init_cache, BatchedServer.__init__):
+    for fn in (model.init_params, model.init_cache, BatchedServer.__init__, kernel_autotune.run,
+               kernel_autotune.bench, configstore_roundtrip.run, configstore_roundtrip.bench):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    assert inspect.signature(BatchedServer.__init__).parameters["step"].default is None
+    assert serve_loop.resolve_step(None, torch.device("cuda")) == "graph"
+    assert serve_loop.resolve_step(None, torch.device("cpu")) == "eager"
+    for argv_main in (kernel_autotune.main, configstore_roundtrip.main):
+        src = inspect.getsource(argv_main)
+        assert 'ap.add_argument("--device", default="cuda"' in src
 
 
 # ------------------------------------------------------------ chip_smoke.py

@@ -486,3 +486,193 @@ def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
     with pytest.raises(ValueError):
         rms_kernel.rmsnorm(x, scale, r, **kw)
     assert rms_kernel.rmsnorm.launches == before
+
+
+# -------------------------------------------------- captured programs (graphs)
+# The server's steps as CUDA graphs against the same bodies run eagerly
+# (repro_torch.core.compilecache, repro_torch.runtime.serve_loop): the same
+# kernels run in the same order on the same buffers, so outputs and token
+# streams are identical, not merely close.
+GRAPH_MODELS = ["olmo-1b", "mamba2-780m", "hymba-1.5b"]
+
+
+def _reduced(name, dtype, device, seed=5):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(name).reduced().validate()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return M.init_params(cfg, gen, device=device, dtype=DTYPES[dtype]), cfg
+
+
+def _graph_prompts(tag, n):
+    rng = np.random.default_rng(zlib.crc32(repr(tag).encode()))
+    return [rng.integers(2, 250, size=int(k)).astype(np.int32) for k in rng.integers(1, 30, n)]
+
+
+def _launch_counts():
+    return {"flash_attention": kernel.flash_attention.launches, "ssd": ssd_kernel.ssd.launches,
+            "rmsnorm": rms_kernel.rmsnorm.launches}
+
+
+def _serve_on(params, cfg, device, step, mode, prompts, **settings):
+    from repro_torch.runtime.serve_loop import BatchedServer
+
+    srv = BatchedServer(params, cfg, capacity=64, eos_id=-1, mode=mode, device=device,
+                        step=step, settings=settings)
+    n0 = _launch_counts()
+    for p in prompts:
+        srv.submit(p)
+    srv.run(max_new_tokens=10)
+    torch.cuda.synchronize()
+    launches = {k: v - n0[k] for k, v in _launch_counts().items()}
+    return srv, {r.rid: list(r.tokens) for r in srv.results.values()}, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_MODELS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["continuous", "gang"])
+def test_graph_server_serves_the_eager_streams_and_counts_exactly(cuda, name, dtype, mode):
+    """Graph and eager paths give identical streams; under replay each
+    kernel's launches are (prefills + prefill captures) x layers."""
+    params, cfg = _reduced(name, dtype, cuda)
+    prompts = _graph_prompts((name, dtype, mode), 7)
+    settings = {"max_batch": 3, "sync_interval": 4} if mode == "continuous" else {"max_batch": 3}
+    eager, want, eager_launches = _serve_on(params, cfg, cuda, "eager", mode, prompts, **settings)
+    graph, got, graph_launches = _serve_on(params, cfg, cuda, "graph", mode, prompts, **settings)
+    assert got == want
+    uses = {"flash_attention": cfg.family in ("dense", "hybrid"),
+            "ssd": cfg.family in ("ssm", "hybrid"), "rmsnorm": False}
+    captures = graph.graphs.captures["serve.prefill"]
+    assert captures == len(graph._admit_steps) and graph.prefill_calls == eager.prefill_calls
+    for k, used in uses.items():
+        assert eager_launches[k] == (eager.prefill_calls * cfg.n_layers if used else 0), k
+        assert graph_launches[k] == ((graph.prefill_calls + captures) * cfg.n_layers
+                                     if used else 0), k
+    assert graph.graphs.replays["serve.decode_fused" if mode == "continuous"
+                                else "serve.decode_step"] == graph.decode_steps - 1
+
+
+@pytest.mark.cuda
+def test_two_live_graph_servers_keep_their_own_graphs(cuda):
+    """Interleaved on one card, two graph servers with one context: the
+    registry's steps are shared, the graphs and buffers are not."""
+    params, cfg = _reduced("olmo-1b", "bfloat16", cuda)
+    prompts = _graph_prompts("two-servers", 6)
+    _, want, _ = _serve_on(params, cfg, cuda, "eager", "continuous", prompts, max_batch=2)
+    from repro_torch.runtime.serve_loop import BatchedServer
+
+    a, b = (BatchedServer(params, cfg, capacity=64, eos_id=-1, device=cuda, step="graph",
+                          settings={"max_batch": 2}) for _ in range(2))
+    assert a._fused_step is b._fused_step
+    for p in prompts:
+        a.submit(p)
+        b.submit(p)
+    a.begin_run(10)
+    b.begin_run(10)
+    while a.queue or a.live_slots or b.queue or b.live_slots:
+        for srv in (a, b):
+            if srv.queue or srv.live_slots:
+                srv.step()
+    for srv in (a, b):
+        assert {r.rid: list(r.tokens) for r in srv.results.values()} == want
+    ga = {s.graph for s in a.graphs.bound.values()}
+    assert ga.isdisjoint({s.graph for s in b.graphs.bound.values()})
+
+
+@pytest.mark.cuda
+def test_kernels_replay_in_a_graph_as_they_run_eagerly(cuda):
+    """The three kernels captured on static buffers, replayed on new data
+    copied into them: bit-identical to eager calls, one launch a kernel a
+    replay added to each wrapper's count."""
+    from repro_torch.core.compilecache import Graphs
+
+    q, k, v = _qkv("graph-attn", 2, 160, 160, 4, 2, 64, "bfloat16", cuda)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 96, 8, 64)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    dt = torch.rand((2, 96, 8), device=cuda) * 0.1
+    A = -torch.rand((8,), device=cuda)
+    B, C = (torch.randn((2, 96, 1, 128), device=cuda).to(torch.bfloat16) / 128 ** 0.25
+            for _ in range(2))
+    r = torch.randn((64, 1536), device=cuda).to(torch.bfloat16)
+    scale = torch.ones(1536, device=cuda)
+    outs = {"attn": torch.empty_like(q), "y": torch.empty_like(x),
+            "state": torch.empty((2, 8, 64, 128), device=cuda), "norm": torch.empty_like(r)}
+
+    def body(q, k, v, x, dt, A, B, C, r, scale, outs):
+        outs["attn"].copy_(kernel.flash_attention(q, k, v, causal=True))
+        y, state = ssd_kernel.ssd(x, dt, A, B, C, return_state=True)
+        outs["y"].copy_(y)
+        outs["state"].copy_(state)
+        outs["norm"].copy_(rms_kernel.rmsnorm(r, scale))
+
+    inputs = (q, k, v, x, dt, A, B, C, r, scale)
+    step = Graphs(capture=True).bind("t.kernels", body, *inputs, outs)
+    step()                                                   # warm-up + capture
+    for t in inputs:                                         # new data, same buffers
+        if t.is_floating_point() and t is not A:
+            t.mul_(0.5)
+    n0 = _launch_counts()
+    step()
+    torch.cuda.synchronize()
+    assert {k_: v_ - n0[k_] for k_, v_ in _launch_counts().items()} == {
+        "flash_attention": 1, "ssd": 1, "rmsnorm": 1}
+    got = {k_: v_.clone() for k_, v_ in outs.items()}
+    body(*inputs, outs)
+    torch.cuda.synchronize()
+    for k_ in outs:
+        assert torch.equal(got[k_], outs[k_]), k_
+
+
+@pytest.mark.cuda
+def test_a_promotion_reaches_only_graphs_captured_after_it(cuda, tmp_path):
+    """Settings resolve at capture: an existing graph keeps the kernel it
+    captured after an override sends the workload to the plain version; a
+    graph captured after the override runs the plain version."""
+    from repro_torch.core import configstore
+    from repro_torch.core.compilecache import Graphs
+
+    q, k, v = _qkv("graph-settings", 1, 128, 128, 4, 4, 64, "bfloat16", cuda)
+    out = torch.empty_like(q)
+    wl = ops.workload_signature(1, 128, 128, 64)
+
+    def body(q, k, v, out):
+        out.copy_(ops.flash_attention(q, k, v, causal=True))
+
+    store = configstore.ConfigStore(tmp_path / "store")
+    old = configstore.set_default_store(store)
+    try:
+        before = Graphs(capture=True).bind("t.settings", body, q, k, v, out)
+        before()
+        store.set_override("torch_flash_attention", wl, {"impl": "naive"})
+        n0 = kernel.flash_attention.launches
+        before()
+        assert kernel.flash_attention.launches == n0 + 1 and before.deltas[0] == 1
+        after = Graphs(capture=True).bind("t.settings", body, q, k, v, torch.empty_like(q))
+        after()
+        after()
+        assert kernel.flash_attention.launches == n0 + 1 and after.deltas[0] == 0
+    finally:
+        configstore.set_default_store(old)
+
+
+@pytest.mark.cuda
+def test_a_graph_server_frees_its_graphs_and_buffers(cuda):
+    import gc
+
+    params, cfg = _reduced("olmo-1b", "bfloat16", cuda)
+    prompts = _graph_prompts("free", 5)
+    # a first server sets up what the process keeps (the capture stream's
+    # cuBLAS workspace, the built kernels); a second must leave nothing
+    _serve_on(params, cfg, cuda, "graph", "continuous", prompts, max_batch=2)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    srv, _, _ = _serve_on(params, cfg, cuda, "graph", "continuous", prompts, max_batch=2)
+    assert torch.cuda.memory_allocated() > base
+    del srv
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= base
