@@ -74,9 +74,9 @@ Phases, in order; any failure exits non-zero before the result lines:
                      widest prefill and the grid's two shapes, and the
                      float32 FMA kernel at mamba2-780m's.
   9. profile       — the OLMo-1B and mamba2-780m serves again on a warm
-                     server of each path (eager, graph): tokens/s and p50,
-                     then under torch.profiler (device activity only) the
-                     device's busy share and top kernels.
+                     server, eager and graph: tokens/s and p50, then under
+                     torch.profiler (device activity only) the device's
+                     busy share and top kernels.
  10. campaign      — the MLOS loop on the card: the full ``kernels`` grid
                      (8 cells over the three kernels, bo, budget 6) through
                      ``repro_torch.launch.campaign`` into a temporary store
@@ -114,7 +114,60 @@ Phases, in order; any failure exits non-zero before the result lines:
                      every cell done, every entry filed under this card, a
                      rerun under the same id measures nothing.
 
-Phases 11-13 run after the campaign phase, before the profiles.  Each phase
+ 14. train        — full-width OLMo-1B (1.28 B params, random bf16 weights
+                     from seed 0) trained by ``repro_torch.runtime.train_loop.
+                     run_training`` on the port's synthetic corpus, batch 8 x
+                     seq 2048: 6 steps with a checkpoint every 3 into a
+                     temporary directory, then a second run to 8 steps that
+                     must resume at step 6.  Per step: loss, gradient norm,
+                     ms by CUDA events, tokens/s and an MFU reading (model
+                     FLOPs over the step time over the bf16 peak); per run
+                     the peak memory allocated and the checkpoint's blocked
+                     seconds.  Fails on a non-finite loss, a resume that
+                     does not continue, or flash-attention launches other
+                     than steps x 16 layers x 2 (the layer recomputed under
+                     ``remat`` "full").  Then one warm step again under
+                     torch.profiler: busy time, idle share, top kernels.
+ 15. train-ssm    — the same for full-width mamba2-780m at batch 4 x seq
+                     1024, one step, a checkpoint, a resumed second step;
+                     SSD launches steps x 48 x 2.
+ 16. train-grad   — at those shapes, bf16 and float32, outputs and input
+                     gradients (q, k, v; x, dt, B, C) through each kernel's
+                     autograd Function against autograd through its plain
+                     version alone, within the kernels phase's tolerances.
+                     Then whole-step gradients of full-width OLMo-1B (seed
+                     0 weights, the corpus's first batch of 8 x 2048) cut
+                     to 2 layers and whole, bf16 and float32: the kernel's
+                     path against the plain path (attention
+                     ``impl="naive"``) on the same weights and batch, on
+                     the gradient norm and the worst leaf (the norm of its
+                     difference over its norm): float32 within
+                     ``STEP_GRAD_TOL`` at 2 layers, and whole within 4x the
+                     move of the plain path with its attention outputs off
+                     by the kernel's float32 error (the step is chaotic
+                     there); bf16 against the float32 plain gradient,
+                     within ``STEP_GRAD_TOL`` or 2x the bf16 plain path's
+                     error; the largest leaves, the norm at cut depths and
+                     over the first 8 batches.
+ 17. fault        — ``python -m repro_torch.bench.runner --only
+                     fault_tolerance`` on the card (reduced OLMo-1B in bf16,
+                     its children fresh interpreters on the card; the full
+                     twin: 16 steps, 3 kills, 10 async/blocking pairs), then
+                     ``check_fault_tolerance`` on its JSON: kill → resume
+                     bit-identical, no re-measured campaign work, the torn
+                     checkpoint's fallback, async beats blocking.
+ 18. agent        — Figure 1: a spawned ``AgentProcess`` tunes
+                     ``torch_train_loop.lr_scale`` (bo, budget 4, 2 steps a
+                     config) of full-width OLMo-1B at batch 4 x seq 512 over
+                     the shared-memory channel, applied through
+                     ``AgentClient`` and ``lr_scale_source``; fails unless
+                     every update lands, a session report arrives and the
+                     daemon exits.
+
+Phases 11-13 run after the campaign phase, before the profiles; phases
+14-18 after the profiles, once the serving phases' servers, weights and
+graph pools are released.  The script sets ``CUBLAS_WORKSPACE_CONFIG``
+before its first product.  Each phase
 from 11 on prints its wall time; after each phase the script prints the
 memory the caching allocator reserved (``torch.cuda.max_memory_reserved``)
 and the time since the start, and it prints its total before the last two
@@ -125,8 +178,10 @@ the reference package, and neither does this script.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1648,10 +1703,606 @@ def phase_serving_grid(device, card: str) -> dict:
     return out
 
 
+# -------------------------------------------------------------------- train
+class _StepTimer:
+    """CUDA events around every step of ``run_training``: ``on_step(step,
+    ckpt_dir)`` is called at the top of a step (the loop's chaos hook, with
+    no fault plan), ``__call__(step, metrics)`` after its metrics are read.
+    On the CPU the host clock takes their place."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.rows, self._start = [], None
+
+    def on_step(self, step, ckpt_dir=None):
+        if self.cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._start = time.perf_counter()
+
+    def __call__(self, step, metrics):
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+            ms = self._start.elapsed_time(end)
+        else:
+            ms = 1e3 * (time.perf_counter() - self._start)
+        self.rows.append({"step": step, "loss": metrics["loss"],
+                          "grad_norm": metrics["grad_norm"], "lr": metrics["lr"], "ms": ms})
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (the MFU reading's numerator): 6·N per
+    token for the parameters' products (forward and backward, no recompute)
+    plus causal attention's 12·S·H·D per token and layer, halved by the
+    mask."""
+    attn_layers = cfg.n_layers if cfg.family in ("dense", "hybrid") else 0
+    tokens = batch * seq
+    return (6.0 * cfg.param_count() * tokens
+            + 12.0 * attn_layers * tokens * seq * cfg.n_heads * cfg.hd / 2)
+
+
+def _remat_factor(cfg, batch: int, seq: int) -> int:
+    """Launches of each kernel per layer and step: 1, and 1 more when the
+    resolved ``remat`` recomputes the layer in the backward pass."""
+    from repro_torch.models.transformer import stack_settings, stack_workload
+
+    remat = stack_settings.settings_for(stack_workload(cfg.family, batch, seq,
+                                                       cfg.n_layers))["remat"]
+    return 1 + (remat != "none")
+
+
+def train_main_path(device, cfg, *, batch: int, seq: int, steps: int, resume_to: int,
+                    ckpt_every: int, ckpt_dir, ckpt_overrides=None) -> dict:
+    """``run_training`` for ``steps`` steps with a checkpoint every
+    ``ckpt_every`` into ``ckpt_dir``, then again to ``resume_to`` steps,
+    which must resume where the first run stopped.  The kernels' launch
+    counts are zeroed before each run and read after it; each run must
+    launch every kernel of the family layers × (1 + recompute) times a
+    step (none on the CPU), and every loss must be finite."""
+    from repro_torch.runtime.train_loop import run_training
+
+    device = torch.device(device)
+    kernels = _kernels()
+    per_step = _expected_launches(cfg, _remat_factor(cfg, batch, seq))
+    runs = []
+    for n_steps in (steps, resume_to):
+        timer = _StepTimer(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():                  # counts of this run only
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = run_training(cfg, n_steps=n_steps, global_batch=batch, seq_len=seq,
+                           ckpt_dir=str(ckpt_dir), ckpt_every=ckpt_every,
+                           ckpt_overrides=ckpt_overrides, on_step=timer, chaos=timer, seed=0,
+                           device=device)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        done = [r["step"] for r in timer.rows]
+        expected = ({k: v * len(done) for k, v in per_step.items()} if device.type == "cuda"
+                    else dict.fromkeys(kernels, 0))  # a CPU tensor never reaches a kernel
+        if launches != expected:
+            raise AssertionError(f"train launches {launches} over {len(done)} steps; expected "
+                                 f"{expected}")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                   for r in timer.rows):
+            raise AssertionError(f"a non-finite loss or gradient norm: {timer.rows}")
+        runs.append({"rows": timer.rows, "launches": launches, "wall_s": wall,
+                     "ckpt": out["ckpt_counters"], "data": out["data_counters"],
+                     "peak_bytes": (torch.cuda.max_memory_allocated()
+                                    if device.type == "cuda" else 0)})
+        del out
+    first, second = ([r["step"] for r in run["rows"]] for run in runs)
+    if first != list(range(steps)) or second != list(range(steps, resume_to)):
+        raise AssertionError(f"steps {first} then {second}: the second run must resume at "
+                             f"step {steps}")
+    return {"runs": runs, "launches": {k: sum(r["launches"][k] for r in runs)
+                                       for k in kernels}}
+
+
+def _train_report(label: str, cfg, batch: int, seq: int, out: dict, card: str) -> None:
+    flops = train_flops(cfg, batch, seq)
+    for i, run in enumerate(out["runs"]):
+        for r in run["rows"]:
+            print(f"{label}: step {r['step']}: loss {r['loss']:.4f}, grad_norm "
+                  f"{r['grad_norm']:.4g}, lr {r['lr']:.3g}, {r['ms']:.1f} ms by CUDA events, "
+                  f"{batch * seq / (r['ms'] / 1e3):.0f} tokens/s, MFU reading "
+                  f"{flops / (r['ms'] / 1e3) / PEAK_BF16_FLOPS:.3f} ({card})")
+        c = run["ckpt"]
+        print(f"{label}: run {i + 1}: wall {run['wall_s']:.1f} s, peak memory allocated "
+              f"{run['peak_bytes'] / 2**30:.2f} GiB, {int(c['saves'])} checkpoint saves, "
+              f"checkpoint blocked {c['blocked_s']:.2f} s, data stall {run['data']['stall_s']:.3f} "
+              f"s, launches {run['launches']} ({card})")
+    steady = [r["ms"] for run in out["runs"] for r in run["rows"][1:]]
+    if steady:
+        ms = float(np.median(steady))
+        print(f"{label}: median step after the first of each run {ms:.1f} ms, "
+              f"{batch * seq / (ms / 1e3):.0f} tokens/s, MFU reading "
+              f"{flops / (ms / 1e3) / PEAK_BF16_FLOPS:.3f} of {PEAK_BF16_FLOPS / 1e12:.0f} "
+              f"TFLOP/s ({flops / 1e12:.2f} TFLOP a step) ({card})")
+
+
+def phase_train(device, card: str, name: str = "olmo-1b", batch: int = 8, seq: int = 2048,
+                steps: int = 6, resume_to: int = 8, ckpt_every: int = 3,
+                label: str = "train") -> dict:
+    """Full-width training through ``run_training`` (random bf16 weights from
+    seed 0, the port's synthetic corpus): ``steps`` steps with a checkpoint
+    every ``ckpt_every`` into a temporary directory, then a second run to
+    ``resume_to`` steps that must resume at ``steps``."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    print(f"{label}: {name} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}), batch {batch} x seq {seq}, "
+          f"{steps} steps then resume to {resume_to}, checkpoint every {ckpt_every} on {card}")
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{label}_") as td:
+        out = train_main_path(device, cfg, batch=batch, seq=seq, steps=steps,
+                              resume_to=resume_to, ckpt_every=ckpt_every, ckpt_dir=td)
+    _train_report(label, cfg, batch, seq, out, card)
+    print(f"{label}: the second run resumed at step {steps}; launches "
+          f"{out['launches']} = steps x {cfg.n_layers} layers x "
+          f"{_remat_factor(cfg, batch, seq)} (remat)")
+    print(f"{label}: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_train_profile(device, card: str, name: str = "olmo-1b", batch: int = 8,
+                        seq: int = 2048, top: int = 8) -> dict:
+    """One warm train step of the train phase's shape again, by CUDA events
+    and under torch.profiler (device activity only): the device's busy
+    time and idle share over the step, and the kernels that take it."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.steps import init_train_state, train_step_for
+
+    cfg = get_config(name)
+    state = init_train_state(cfg, torch.Generator(device=device).manual_seed(0), device)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))).to(device)
+    data = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    step = train_step_for(cfg)
+    state, _ = step(state, data)                     # warm: cuBLAS, allocator
+    ms = _time_ms(lambda: step(state, data), reps=1)
+    busy, window, n_ops, by_name = _device_profile(lambda: (step(state, data),
+                                                            torch.cuda.synchronize()), host=False)
+    del state
+    torch.cuda.empty_cache()
+    print(f"train-profile: {name} batch {batch} x seq {seq}: a warm step {ms:.1f} ms by CUDA "
+          f"events; device busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms window "
+          f"(idle share {1 - busy / window:.3f}), {n_ops} device ops ({card})")
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"train-profile:   {us / busy:.3f} of busy, {us / 1e3:8.1f} ms  {kname[:100]}")
+    return {"ms": ms, "busy_ms": busy / 1e3, "window_ms": window / 1e3, "ops": n_ops}
+
+
+# ----------------------------------------------------------------- train-grad
+TRAIN_GRAD_SHAPES = {
+    # name: (batch, seq, heads, kv_heads, head_dim) / (batch, seq, heads, head_dim, state, groups)
+    "olmo-1b attention": (8, 2048, 16, 16, 128),
+    "mamba2-780m ssd": (4, 1024, 48, 64, 128, 1),
+}
+
+
+def phase_train_grad(device) -> dict:
+    """At the train phases' shapes, bf16 and float32: the outputs and input
+    gradients through each kernel's autograd Function against autograd
+    through its plain version alone, within the kernels phase's tolerances
+    (tests/test_kernels.py's grid tolerances; the SSD's headroom 4)."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
+    from repro_torch.kernels.ssd import kernel as sk, ref as sk_ref
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        b, s, h, kh, d = TRAIN_GRAD_SHAPES["olmo-1b attention"]
+        q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(dtype)
+                       for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d), (b, s, h, d)))
+        ins = [t.requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_attention(*ins, causal=True)
+        if out.grad_fn is None or type(out.grad_fn).__name__ != "FlashAttentionFnBackward":
+            raise AssertionError(f"the attention kernel's output is not on its Function: "
+                                 f"{out.grad_fn}")
+        got = torch.autograd.grad(out, ins, do)
+        want_out = fa_ref.naive_attention(*ins, causal=True)
+        want = torch.autograd.grad(want_out, ins, do)
+        errs[("attention", dtype)] = _grad_errs(out, want_out, got, want, "qkv", TOL[dtype])
+        del q, k, v, do, ins, out, got, want_out, want
+        b, s, h, p, n, g = TRAIN_GRAD_SHAPES["mamba2-780m ssd"]
+        x, dt, A, B, C, D = _ssd_inputs((b, s, h, p, n, g), dtype, device, SEED)
+        dy = torch.randn((b, s, h, p), generator=gen, device=device).to(dtype)
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, B, C)]
+        y, state = sk.ssd(ins[0], ins[1], A, ins[2], ins[3], D, chunk=64, return_state=True)
+        if type(y.grad_fn).__name__ != "SsdFnBackward" or state.grad_fn is None:
+            raise AssertionError(f"the SSD kernel's outputs are not on its Function: "
+                                 f"{y.grad_fn}, {state.grad_fn}")
+        del state
+        got = torch.autograd.grad(y, ins, dy)
+        want_y = sk_ref.ssd_chunked(ins[0], ins[1], A, ins[2], ins[3], D, chunk=64)
+        want = torch.autograd.grad(want_y, ins, dy)
+        errs[("ssd", dtype)] = _grad_errs(y, want_y, got, want, ("x", "dt", "B", "C"),
+                                          SSD_HEADROOM * TOL[dtype])
+        del x, dt, A, B, C, D, dy, ins, y, got, want_y, want
+        torch.cuda.empty_cache()
+    shapes = dict(zip(("attention", "ssd"), TRAIN_GRAD_SHAPES.values()))
+    for (kernel_name, dtype), e in errs.items():
+        print(f"train-grad: {kernel_name} {str(dtype).split('.')[-1]} at {shapes[kernel_name]}: "
+              + ", ".join(f"{k} max_abs_err {v:.3g}" for k, v in e.items()))
+    return errs
+
+
+# Whole-step gradients of the kernel's path against the plain path
+# (``impl="naive"``) on the same weights and batch: the relative difference
+# of the gradient norm, and of the worst leaf (the norm of its difference
+# over its norm).  Held at the stack cut to 2 layers (full width, remat
+# "full"), where the step is well conditioned: float32 within STEP_GRAD_TOL
+# (the kernel agrees with its plain version to ~1e-6, so 1e-4 on the norm
+# and 1e-3 on a leaf are wide for rounding and 1000x below a detached
+# attention, whose leaves read 1.0).  At full depth the step at these
+# weights is chaotic: its norm grows ~5x a layer
+# (tests/test_torch_train.py::test_initial_grad_norm_matches_reference_at_
+# depth), and a perturbation of the attention outputs at the size of one
+# float32 rounding decorrelates its gradient.  There float32 is
+# held to the plain path with its attention outputs off by the kernel's own
+# float32 error (a relative +-eps, a fixed function of each output, so the
+# recompute repeats it), over STEP_GRAD_DRAWS such perturbations: the
+# kernel's loss may move by 4x their largest move, its worst leaf by 4x
+# theirs, and its norm may lie within half their least and twice their
+# largest (the norm is heavy-tailed under them; the phase prints each
+# draw).  bfloat16, at both depths:
+# one rounding of the attention output moves the attention weights'
+# gradients by tens of percents, so both bf16 paths are held to the float32
+# plain gradient: the kernel's error may be 2x the bf16 plain path's (on
+# the worst leaf and on the norm) or STEP_GRAD_TOL, whichever is larger.
+STEP_GRAD_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (5e-2, 0.25)}
+STEP_GRAD_DRAWS = (12345.678, 54321.123, 1000.5, 2000.25)   # the perturbations' sign frequencies
+
+
+class _PerturbedAttention:
+    """Within the block, every attention output ``y`` becomes ``y * (1 +
+    eps * sign(sin(freq * y)))``: off by a relative ``eps`` whose sign is a
+    fixed function of the value, so a layer's recompute in the backward
+    pass repeats its forward."""
+
+    def __init__(self, eps: float, freq: float):
+        self.eps, self.freq = eps, freq
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        self.ops, self.orig = ops, ops.flash_attention
+        eps, freq, orig = self.eps, self.freq, self.orig
+
+        def perturbed(*args, **kwargs):
+            y = orig(*args, **kwargs)
+            return y * (1 + eps * torch.sign(torch.sin(freq * y.float()))).to(y.dtype)
+
+        ops.flash_attention = perturbed
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.orig
+
+
+def _step_grads(cfg, params: dict, batch: dict, impl: str) -> tuple:
+    """(loss, {leaf path: gradient}) of the train loss at ``params`` with the
+    attention's ``impl`` pinned for the batch's workload."""
+    from repro_torch.core import configstore
+    from repro_torch.kernels.flash_attention.ops import workload_signature
+    from repro_torch.models import model as M
+    from repro_torch.runtime.steps import cast_for_compute
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    b, s = batch["tokens"].shape
+    wl = workload_signature(b, s, s, cfg.hd)
+    configstore.set_override("torch_flash_attention", wl, {"impl": impl})
+    try:
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = M.loss_fn(cast_for_compute(live, cfg), cfg, batch)
+        grads = torch.autograd.grad(loss, leaves(live))
+    finally:
+        configstore.clear_override("torch_flash_attention", wl)
+    return float(loss.detach()), dict(zip((k for k, _ in leaves_with_paths(params)), grads))
+
+
+def _norms(grads: dict) -> dict:
+    return {k: float(torch.linalg.vector_norm(g.float())) for k, g in grads.items()}
+
+
+def _total(norms: dict) -> float:
+    return math.sqrt(sum(n * n for n in norms.values()))
+
+
+def _grad_diff(got: dict, want: dict) -> tuple:
+    """(norm rel diff, {leaf: rel diff}) of two gradient trees."""
+    gn, wn = _norms(got), _norms(want)
+    leaf = {k: float(torch.linalg.vector_norm((got[k] - want[k]).float())) / max(wn[k], 1e-30)
+            for k in got}
+    return abs(_total(gn) - _total(wn)) / _total(wn), leaf
+
+
+def phase_train_step_grad(device, card: str, cfg=None, batch: int = 8, seq: int = 2048,
+                          depths=(2, 4, 8), eps: float = 2.0 ** -23) -> dict:
+    """Whole-step gradients of ``cfg`` (full-width OLMo-1B unless given) on
+    its seed-0 weights and the corpus's first batch, bf16 and float32: the
+    kernel's path against the plain path at ``depths[0]`` layers and at
+    full depth (``STEP_GRAD_TOL``; ``eps`` is the float32 kernel's error,
+    the full-depth yardstick's perturbation); then the norm at the other
+    cut depths and over the first 8 batches (the largest leaf and embedding
+    rows of each), bf16 on the kernel's path."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PackedBatcher, SyntheticCorpus
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = cfg or get_config("olmo-1b")
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    corpus = PackedBatcher(SyntheticCorpus(cfg.vocab_size, seed=0), batch, seq)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
+                for k, v in corpus.batch_at(i).items()}
+
+    def cut(tree, n_layers):
+        return {**tree, "blocks": tree["blocks"][:n_layers]}
+
+    data, out, failed = batch_at(0), {}, []
+
+    def report(n_layers, dtype, k_loss, k_norms, norm_rel, leaf_rel, base, tol_norm, tol_leaf):
+        worst = max(leaf_rel, key=leaf_rel.get)
+        tol_leaf = max(tol_leaf[worst], STEP_GRAD_TOL[dtype][1])
+        tol_norm = max(tol_norm, STEP_GRAD_TOL[dtype][0])
+        kn = _total(k_norms)
+        top = sorted(k_norms, key=k_norms.get, reverse=True)[:3]
+        print(f"train-step-grad: {cfg.name} {n_layers} layers {dtype} batch {batch} x seq "
+              f"{seq}: kernel loss {k_loss:.6f} grad_norm {kn:.6g}; against {base}: grad_norm "
+              f"rel diff {norm_rel:.3g} (tolerance {tol_norm:.3g}), worst leaf {worst} rel diff "
+              f"{leaf_rel[worst]:.3g} (tolerance {tol_leaf:.3g}); largest leaves "
+              + ", ".join(f"{k} {k_norms[k]:.4g}" for k in top)
+              + f"; embed's share of the squared norm {k_norms['embed'] ** 2 / kn ** 2:.6f}"
+              f" ({card})")
+        if not (math.isfinite(kn) and norm_rel <= tol_norm and leaf_rel[worst] <= tol_leaf):
+            failed.append(f"{n_layers}-layer {dtype}: grad_norm rel diff {norm_rel:.3g} "
+                          f"(tolerance {tol_norm:.3g}), {worst} rel diff "
+                          f"{leaf_rel[worst]:.3g} (tolerance {tol_leaf:.3g})")
+        out[f"{dtype} {n_layers} layers"] = {
+            "grad_norm": kn, "against": base, "grad_norm_rel": norm_rel, "worst_leaf": worst,
+            "worst_leaf_rel": leaf_rel[worst], "tol": [tol_norm, tol_leaf]}
+
+    for n_layers in (depths[0], cfg.n_layers):
+        f32 = dataclasses.replace(cfg, dtype="float32", n_layers=n_layers).validate()
+        p = cut(tree_map(lambda x: x.float(), params), n_layers)
+        p_loss, truth = _step_grads(f32, p, data, "naive")
+        k_loss, k_grads = _step_grads(f32, p, data, "kernel")
+        norm_rel, leaf_rel = _grad_diff(k_grads, truth)
+        tol_norm, tol_leaf = 0.0, dict.fromkeys(leaf_rel, 0.0)
+        pn = _total(_norms(truth))
+        print(f"train-step-grad: {n_layers} layers float32: plain loss {p_loss:.6f}, grad_norm "
+              f"{pn:.6g}")
+        if n_layers != depths[0]:
+            draws = []
+            for freq in STEP_GRAD_DRAWS:
+                with _PerturbedAttention(eps, freq):
+                    q_loss, q_grads = _step_grads(f32, p, data, "naive")
+                draws.append((q_loss, _total(_norms(q_grads)) / pn, _grad_diff(q_grads, truth)[1]))
+                del q_grads
+            tol_leaf = {k: 4 * max(d[2][k] for d in draws) for k in leaf_rel}
+            tol_loss = 4 * max(abs(d[0] - p_loss) for d in draws)
+            lo, hi = min(d[1] for d in draws) / 2, 2 * max(d[1] for d in draws)
+            tol_norm = hi - 1.0
+            k_ratio = _total(_norms(k_grads)) / pn
+            print(f"train-step-grad: {n_layers} layers float32 plain path, attention outputs off "
+                  f"by {eps:.3g} ({len(draws)} draws): loss "
+                  + ", ".join(f"{d[0]:.6f}" for d in draws) + "; grad_norm / plain "
+                  + ", ".join(f"{d[1]:.4g}" for d in draws) + "; kernel: loss "
+                  f"{k_loss:.6f} (|diff| tolerance {tol_loss:.3g}), grad_norm / plain "
+                  f"{k_ratio:.4g} (within {lo:.4g}-{hi:.4g})")
+            if not (abs(k_loss - p_loss) <= tol_loss and lo <= k_ratio <= hi):
+                failed.append(f"{n_layers}-layer float32: loss {k_loss:.6f} against "
+                              f"{p_loss:.6f} (tolerance {tol_loss:.3g}), grad_norm / plain "
+                              f"{k_ratio:.4g} outside {lo:.4g}-{hi:.4g}")
+        report(n_layers, "float32", k_loss, _norms(k_grads), norm_rel, leaf_rel,
+               "the plain path", tol_norm, tol_leaf)
+        del k_grads, p
+        bf = dataclasses.replace(cfg, n_layers=n_layers).validate()
+        p_loss, p_grads = _step_grads(bf, cut(params, n_layers), data, "naive")
+        k_loss, k_grads = _step_grads(bf, cut(params, n_layers), data, "kernel")
+        p_norm, p_leaf = _grad_diff(p_grads, truth)
+        norm_rel, leaf_rel = _grad_diff(k_grads, truth)
+        print(f"train-step-grad: {n_layers} layers bfloat16 plain path against float32: loss "
+              f"{p_loss:.6f}, grad_norm rel diff {p_norm:.3g}, worst leaf rel diff "
+              f"{max(p_leaf.values()):.3g}")
+        report(n_layers, "bfloat16", k_loss, _norms(k_grads), norm_rel, leaf_rel,
+               "the float32 plain path", 2 * p_norm, {k: 2 * v for k, v in p_leaf.items()})
+        del k_grads, p_grads, truth
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("whole-step gradients: " + "; ".join(failed))
+    for n_layers in depths[1:]:
+        c = dataclasses.replace(cfg, n_layers=n_layers).validate()
+        _, g = _step_grads(c, cut(params, n_layers), data, "kernel")
+        print(f"train-step-grad: bf16 kernel path cut to {n_layers} layers: grad_norm "
+              f"{_total(_norms(g)):.6g}")
+        del g
+    for i in range(8):
+        _, g = _step_grads(cfg, params, batch_at(i), "kernel")
+        norms = _norms(g)
+        vals, ids = torch.topk(torch.linalg.vector_norm(g["embed"].float(), dim=-1), 3)
+        print(f"train-step-grad: seed-0 weights, batch {i}: grad_norm {_total(norms):.6g}, "
+              f"largest leaf {max(norms, key=norms.get)}, largest embed rows "
+              + ", ".join(f"token {int(t)} {float(v):.4g}" for t, v in zip(ids, vals)))
+        del g
+    del params
+    torch.cuda.empty_cache()
+    print(f"train-step-grad: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _grad_errs(out, want_out, got, want, names, tol: float) -> dict:
+    """Max abs errors of the output and each gradient, each scaled by its
+    reference's magnitude (max(1, max|ref|)); raises beyond ``tol``."""
+    errs = {"out": out, **dict(zip(names, got))}
+    refs = {"out": want_out, **dict(zip(names, want))}
+    res = {}
+    for k in errs:
+        a, r = errs[k].detach().float(), refs[k].detach().float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{k}: non-finite values")
+        err = float((a - r).abs().max())
+        scale = max(1.0, float(r.abs().max()))
+        if err > tol * scale:
+            raise AssertionError(f"{k}: max abs err {err:.3g} > {tol:.3g} x {scale:.3g}")
+        res[k] = err
+    return res
+
+
+# ---------------------------------------------------------------------- fault
+def phase_fault(card: str) -> dict:
+    """The fault-tolerance twin on the card through the runner, in a child
+    process of this one (its own children are fresh interpreters on the
+    card): kill → resume bit-identical, a killed campaign that re-measures
+    nothing, the torn-checkpoint fallback and the async-vs-blocking verdict;
+    then ``check_fault_tolerance`` here on its JSON.  The full twin, not the
+    quick one: with the quick twin's 6 samples a side the permutation test's
+    p is 0.010-0.017 even when every async sample is below every blocking
+    one, so a single slow async save on the card's shared disk turns the
+    verdict to ``noise``; 10 a side leave room for one."""
+    import os
+    import tempfile
+
+    from repro_torch.bench import check
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fault_") as td:
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.bench.runner", "--only", "fault_tolerance",
+             "--out-dir", td, "--trajectory", str(Path(td) / "traj.jsonl")],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            if line.strip():
+                print(f"fault: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the fault-tolerance runner exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        check.check_fault_tolerance(expect_quick=False, bench_dir=td)
+        res = json.loads((Path(td) / "fault_tolerance.json").read_text())
+    if res["device"] != "cuda" or res["device_name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the twin ran on {res['device']} {res['device_name']}")
+    tr, v = res["train"], res["ckpt_overhead"]["verdict"]
+    print(f"fault: on {res['device_name']}: {tr['kills']} kills at {tr['kill_steps']}, "
+          f"bit_identical={tr['bit_identical']}, "
+          f"recovery_s {[round(s, 2) for s in tr['recovery_s']]}, "
+          f"async blocked ms median {np.median(res['ckpt_overhead']['async_blocked_ms']):.2f} vs "
+          f"blocking {np.median(res['ckpt_overhead']['blocking_blocked_ms']):.2f} "
+          f"({v['verdict']}, p={v['p_value']}) ({card})")
+    print(f"fault: phase wall {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------- agent
+def agent_main_path(device, cfg, *, batch: int, seq: int, budget: int = 4,
+                    per_config: int = 2, tail: int = 2) -> dict:
+    """Figure 1 on ``device``: a spawned agent daemon runs a
+    ``torch_train_loop`` session over ``lr_scale`` (bo, ``budget`` configs,
+    ``per_config`` steps each) against a live ``run_training``, whose
+    telemetry reaches it over the shared-memory channel; every config
+    update lands through ``AgentClient`` and ``lr_scale_source``, then the
+    best is parked for ``tail`` steps.  Raises unless every update landed
+    on the steps it was meant for, a session report arrived and the daemon
+    exited."""
+    from repro_torch.core.agent import AgentClient, AgentProcess, TrackedInstance, make_session
+    from repro_torch.core.channel import MlosChannel
+    from repro_torch.runtime.train_loop import run_training, workload_signature
+
+    kernels = _kernels()
+    session = make_session("torch_train_loop", "loss", optimizer="bo", budget=budget,
+                           samples_per_config=per_config, seed=0,
+                           workload=workload_signature(batch, seq, cfg.d_model))
+    applied, seen = [], []
+
+    class Dial:
+        lr_scale = None
+
+        def apply_settings(self, settings):
+            self.lr_scale = float(settings["lr_scale"])
+            applied.append(self.lr_scale)
+
+    dial = Dial()
+    chan = MlosChannel.create(capacity=1 << 16)
+    agent = AgentProcess(chan, session)
+    try:
+        agent.start()
+        client = AgentClient(chan)
+        client.register("torch_train_loop", TrackedInstance(dial))
+        if client.poll(wait_s=0.002, deadline_s=120.0) != 1:
+            raise AssertionError("the agent's first proposal did not arrive")
+
+        def on_step(step, metrics):
+            seen.append((dial.lr_scale, metrics["loss"]))
+            if (step + 1) % per_config == 0 and len(applied) <= budget:
+                if client.poll(wait_s=0.002, deadline_s=120.0) < 1:
+                    raise AssertionError(f"no config update after step {step}")
+
+        for fn in kernels.values():
+            fn.launches = 0
+        out = run_training(cfg, n_steps=budget * per_config + tail, global_batch=batch,
+                           seq_len=seq, channel=chan, on_step=on_step,
+                           lr_scale_source=lambda: dial.lr_scale, seed=0, device=device)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        agent.proc.join(60)
+        client.poll()
+        exited = not agent.proc.is_alive() and agent.proc.exitcode == 0
+    finally:
+        if agent.proc.is_alive():
+            agent.stop()
+        chan.close()
+    report = client.report_for("torch_train_loop")
+    want = [a for a in applied[:budget] for _ in range(per_config)] + applied[-1:] * tail
+    if len(applied) != budget + 1 or [s for s, _ in seen] != want:
+        raise AssertionError(f"config updates {applied} landed on steps as {seen}")
+    if report is None or report["evaluations"] != budget or \
+            report["best_config"]["lr_scale"] != applied[-1]:
+        raise AssertionError(f"session report {report} (applied {applied})")
+    if not exited:
+        raise AssertionError(f"the agent daemon did not exit (exitcode {agent.proc.exitcode})")
+    return {"applied": applied, "seen": seen, "report": report, "launches": launches,
+            "history": out["history"]}
+
+
+def phase_agent(device, card: str, batch: int = 4, seq: int = 512) -> dict:
+    from repro_torch.configs import get_config
+
+    cfg = get_config("olmo-1b")
+    t0 = time.perf_counter()
+    out = agent_main_path(device, cfg, batch=batch, seq=seq)
+    print(f"agent: olmo-1b full width, batch {batch} x seq {seq}, bo budget 4 x 2 steps over "
+          f"torch_train_loop.lr_scale, a spawned daemon over the shared-memory channel, on {card}")
+    for (lr_scale, loss), h in zip(out["seen"], out["history"]):
+        print(f"agent: lr_scale {lr_scale:.4g}: loss {loss:.4f}, step_time_s "
+              f"{h['step_time_s']:.3f}")
+    rep = out["report"]
+    print(f"agent: {len(out['applied'])} config updates landed; session report: best "
+          f"{rep['best_config']} (loss {rep['best_value']:.4f}) after {rep['evaluations']} "
+          f"evaluations; the daemon exited; launches {out['launches']}")
+    print(f"agent: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
         return 2
+    # cuBLAS reads its workspace setting when its first handle is made: set
+    # before any product, so the train phases' steps are deterministic
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     device = torch.device("cuda")
     _import_port()
@@ -1690,13 +2341,37 @@ def main() -> int:
         phase_profile(device, serves["mamba2-780m"], card, step)
     _memory("profile", t_start)
 
+    # the serving paths' servers, weights and graph pools go before training
+    path_launches = {name: out["launches"] for name, out in serves.items()}
+    path_launches["campaign"] = campaign["launches"]
+    path_launches.update({name: out["launches"] for name, out in paths.items()})
+    del serves, paths, graphs, campaign
+    gc.collect()
+    torch.cuda.empty_cache()
+    _memory("serving released", t_start)
+    path_launches["train"] = phase_train(device, card)["launches"]
+    phase_train_profile(device, card)
+    _memory("train", t_start)
+    path_launches["train-ssm"] = phase_train(device, card, "mamba2-780m", batch=4, seq=1024,
+                                             steps=1, resume_to=2, ckpt_every=1,
+                                             label="train-ssm")["launches"]
+    _memory("train-ssm", t_start)
+    grad_errs = phase_train_grad(device)
+    step_grad = phase_train_step_grad(device, card,
+                                      eps=grad_errs[("attention", torch.float32)]["out"])
+    _memory("train-grad", t_start)
+    phase_fault(card)
+    path_launches["agent"] = phase_agent(device, card)["launches"]
+    _memory("agent", t_start)
+
     def launches(kernel_name):
-        by_path = {name: out["launches"][kernel_name] for name, out in serves.items()
-                   if out["launches"][kernel_name]}
-        by_path["campaign"] = campaign["launches"][kernel_name]
-        by_path.update({name: out["launches"][kernel_name] for name, out in paths.items()
-                        if out["launches"][kernel_name]})
+        by_path = {name: n[kernel_name] for name, n in path_launches.items()
+                   if n[kernel_name] or name == "campaign"}
         return sum(by_path.values()), by_path
+
+    def grad_err(kernel_name):
+        return {str(dtype).split(".")[-1]: max(e.values())
+                for (k, dtype), e in grad_errs.items() if k == kernel_name}
 
     timed = ("ms", "ms_device", "plain_ms", "plain_ms_device", "library_ms",
              "library_ms_device", "bound_ms", "bound_by")
@@ -1714,12 +2389,14 @@ def main() -> int:
               "src/repro/kernels/flash_attention/kernel.py:85", errs, timing,
               timing["shape"], source_float32="src/repro_torch/csrc/flash_attention.cu",
               shapes=timing["shapes"], build={k: builds[k] for k in ("flash_attention_tc",
-                                                                      "flash_attention")}),
+                                                                      "flash_attention")},
+              train_grad_max_abs_err=grad_err("attention"), train_step_grad=step_grad),
         entry("ssd", "src/repro_torch/csrc/ssd_tc.cu", "src/repro/kernels/ssd/kernel.py:74",
               ssd_errs["y"], timing_ssd, timing_ssd["shape"] + " chunk 64",
               source_float32="src/repro_torch/csrc/ssd.cu", shapes=timing_ssd["shapes"],
               max_abs_err_state=ssd_errs["state"],
-              build={k: builds[k] for k in ("ssd_tc", "ssd")}),
+              build={k: builds[k] for k in ("ssd_tc", "ssd")},
+              train_grad_max_abs_err=grad_err("ssd")),
         entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm/kernel.py:33", rms_errs, timing_rms["rmsnorm"],
               "bf16 r16384 d1536, bf16 scale", residual=timing_rms["rmsnorm_res"],

@@ -1,6 +1,7 @@
 """The port's benchmarks: twins of the reference's
 ``benchmarks/serve_scenarios.py``, ``benchmarks/online_tuning.py``,
-``benchmarks/kernel_autotune.py`` and ``benchmarks/configstore_roundtrip.py``,
+``benchmarks/kernel_autotune.py``, ``benchmarks/configstore_roundtrip.py`` and
+``benchmarks/fault_tolerance.py``,
 their runner with its regression gate (:mod:`.runner`) and their smoke
 checks (:mod:`.check`).  Everything they write goes under :data:`BENCH_ROOT`, the
 repository's ``results/torch/bench/``, never into the reference's

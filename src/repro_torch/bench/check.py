@@ -1,10 +1,11 @@
 """Smoke assertions over the twins' benchmark JSON.
 
 The port of ``benchmarks/check_bench.py``'s ``check_serve_scenarios``,
-``check_online_tuning``, ``check_kernel_autotune`` and
-``check_configstore_resolve``, reading ``serve_scenarios.json``,
-``online_tuning.json``, ``kernel_autotune.json`` and
-``configstore_resolve.json`` from a bench directory (by default
+``check_online_tuning``, ``check_kernel_autotune``,
+``check_configstore_resolve`` and ``check_fault_tolerance``, reading
+``serve_scenarios.json``, ``online_tuning.json``, ``kernel_autotune.json``,
+``configstore_resolve.json`` and ``fault_tolerance.json`` from a bench
+directory (by default
 :data:`~repro_torch.bench.BENCH_ROOT`).  Each check is filed under the name
 of the twin that writes its JSON; the runner calls it after that twin, and
 a failing assertion points at a line here.
@@ -106,11 +107,37 @@ def check_configstore_resolve(expect_quick: Optional[bool] = None,
     _expect(len(d["resolve"]["uncached_ms_samples"]) >= 2, d["resolve"])
 
 
+def check_fault_tolerance(expect_quick: Optional[bool] = None,
+                          bench_dir: Any = BENCH_ROOT) -> None:
+    """Every kill restarted once and resumed bit-identically, every resume
+    timed, the torn newest checkpoint fell back, the killed campaign
+    re-measured nothing it had finished, and async checkpointing beat
+    blocking on blocked time (a ``stats.compare`` verdict)."""
+    d = _load("fault_tolerance", expect_quick, bench_dir)
+    tr = d["train"]
+    _expect(tr["kills"] >= 1 and tr["restarts"] == tr["kills"], tr)
+    _expect(tr["overlap_identical"], "re-executed steps diverged from first run")
+    _expect(tr["bit_identical"], "resumed loss trajectory is not bit-identical to uninterrupted")
+    _expect(len(tr["recovery_s"]) == tr["kills"], tr["recovery_s"])
+    _expect(all(s > 0 for s in tr["recovery_s"]), tr["recovery_s"])
+    _expect(d["torn"]["fell_back"], f"corrupt newest checkpoint did not fall back: {d['torn']}")
+    ca = d["campaign"]
+    _expect(ca["completed_before_kill"] >= 1, ca)
+    _expect(ca["replayed_completed_evals"] == 0,
+            f"resume re-measured evals of completed cells: {ca}")
+    _expect(ca["cells_resumed_exactly"] >= 1, ca)
+    v = d["ckpt_overhead"]["verdict"]
+    _expect(v["verdict"] == "improved",
+            f"async checkpointing did not beat blocking on blocked time: {v}")
+    _expect(v["candidate_location"] < v["baseline_location"], v)
+
+
 CHECKS = {
     "serve_scenarios": check_serve_scenarios,
     "online_tuning": check_online_tuning,
     "kernel_autotune": check_kernel_autotune,
     "configstore_roundtrip": check_configstore_resolve,
+    "fault_tolerance": check_fault_tolerance,
 }
 
 

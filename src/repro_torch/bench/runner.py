@@ -2,7 +2,7 @@
 
 The port of ``benchmarks/runner.py`` over the port's twins only
 (``serve_scenarios``, ``online_tuning``, ``kernel_autotune``,
-``configstore_roundtrip``).  Every
+``configstore_roundtrip``, ``fault_tolerance``).  Every
 registered benchmark exposes ``bench(quick, seed, device=, out_dir=) ->
 [BenchRecord]``; the runner runs them, checks each twin's JSON
 (:mod:`.check`), gates each record against its stored context-keyed
@@ -67,6 +67,12 @@ def _kernel_autotune(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
 @register("configstore_roundtrip")
 def _configstore_roundtrip(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
     from . import configstore_roundtrip as m
+    return m.bench(quick=quick, seed=seed, **kw)
+
+
+@register("fault_tolerance")
+def _fault_tolerance(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
+    from . import fault_tolerance as m
     return m.bench(quick=quick, seed=seed, **kw)
 
 

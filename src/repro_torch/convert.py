@@ -6,7 +6,9 @@ as ``repro.models.model.init_params`` builds them and ``jax.device_get``
 returns them — and returns the port's parameters (``blocks`` unstacked into
 one dict per layer).  The same weights then run through both packages, which
 is how the parity tests hold the port against the reference: a jax.random
-stream cannot be replayed in torch.  This module imports no jax.
+stream cannot be replayed in torch.  :func:`train_state_from_reference`
+does the same for a whole train state (parameters, Adam moments and
+counters).  This module imports no jax.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from .models.config import ModelConfig
 from .models.layers import P, torch_dtype
 from .models.model import param_specs, unstack_blocks
 
-__all__ = ["params_from_reference"]
+__all__ = ["params_from_reference", "train_state_from_reference"]
 
 
 def _tensor(a: Any, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -56,3 +58,22 @@ def params_from_reference(tree: Dict[str, Any], cfg: ModelConfig,
     out = _convert(param_specs(cfg), tree, "", torch.device(device),
                    torch_dtype(dtype) if dtype is not None else None)
     return unstack_blocks(out, cfg.n_layers)
+
+
+def train_state_from_reference(state: Dict[str, Any], cfg: ModelConfig,
+                               device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """The reference's train state (``repro.runtime.steps.init_train_state``
+    as numpy: ``{"params", "opt": {"m", "v", "count"}, "step"}``) → the
+    port's: parameters as :func:`params_from_reference` loads them (dtypes
+    kept), ``m`` and ``v`` unstacked per layer in float32, ``count`` and
+    ``step`` 0-d int32 tensors, all on ``device``."""
+    device = torch.device(device)
+    opt = state["opt"]
+    scalar = lambda a: torch.tensor(int(np.asarray(a)), dtype=torch.int32, device=device)
+    return {
+        "params": params_from_reference(state["params"], cfg, device=device),
+        "opt": {"m": params_from_reference(opt["m"], cfg, device=device, dtype="float32"),
+                "v": params_from_reference(opt["v"], cfg, device=device, dtype="float32"),
+                "count": scalar(opt["count"])},
+        "step": scalar(state["step"]),
+    }

@@ -1,7 +1,8 @@
-"""The MLOS agent's in-process core: tuning sessions, their ask/tell logic,
-and the multiplexer that drives many of them behind one telemetry stream.
+"""The MLOS agent: tuning sessions, their ask/tell logic, the multiplexer
+that drives many of them behind one telemetry stream, and the side-car
+daemon that runs that multiplexer in its own process.
 
-The port of the in-process half of ``repro/core/agent.py``:
+The port of ``repro/core/agent.py``:
 
   * :class:`TuningSession` — everything the agent needs to tune one
     component instance (JSON-serializable), built by :func:`make_session`;
@@ -9,6 +10,12 @@ The port of the in-process half of ``repro/core/agent.py``:
     per-config samples, step the optimizer, emit config-update commands;
   * :class:`AgentMux` — N cores routed by the ``(component_id,
     instance_id)`` header of each record (:mod:`.codegen`);
+  * :func:`agent_main` / :class:`AgentProcess` — the mux in a separate OS
+    process attached to the shared-memory :class:`~.channel.MlosChannel`
+    (the paper's side-car), telemetry drained in batches per poll;
+  * :class:`AgentClient` and :class:`TrackedInstance` — the host side:
+    apply config updates to live instances, collect session reports and
+    promote them into a config store;
   * :func:`drive_session` and :func:`promote_session_report` — the
     single-session driver and the promote half of tune → validate → persist.
 
@@ -17,25 +24,32 @@ Wire protocol (JSON commands, packed structs on telemetry):
 {component, instance, best_config, best_value, evaluations, objective,
 mode, budget, context}.
 
-The spawned agent daemon over shared memory (``AgentProcess``,
-``AgentClient``, ``agent_main`` and ``core/channel.py``) is not ported
-yet.  Every optimizer here asks on its own (the reference's batched jax
-ask has no counterpart).
+The daemon starts with the ``spawn`` context, never ``fork``: the host
+holds a CUDA context and threads that a forked child must not inherit.
+The spawned interpreter imports this module, the channel, the optimizers
+(numpy, scipy) and the tunable space, and nothing that imports torch, so
+it never touches the card.  Every optimizer here asks on its own (the
+reference's batched jax ask has no counterpart).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import struct
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+import time
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
-from .optimizers import make_optimizer
+from .channel import MlosChannel
+from .optimizers import make_optimizer, optimizer_defaults, set_optimizer_defaults
 from .registry import ComponentMeta
 from .tunable import TunableSpace
 
-__all__ = ["TuningSession", "make_session", "AgentCore", "AgentMux", "drive_session",
+__all__ = ["TuningSession", "make_session", "AgentCore", "AgentMux", "AgentProcess",
+           "AgentClient", "TrackedInstance", "agent_main", "drive_session",
            "promote_session_report"]
 
+_CONTROL_STOP = b"\x00STOP"
 _HEADER = struct.Struct("<II")  # (component_id, instance_id) telemetry prefix
 
 
@@ -109,6 +123,18 @@ def make_session(component: Union[str, ComponentMeta], objective: str, *,
         space_json=sp.to_json(), objective=objective, instance_id=instance_id,
         mode=mode, optimizer=optimizer, samples_per_config=samples_per_config,
         budget=budget, seed=seed, context=context, prior=prior)
+
+
+def sessions_to_json(sessions: Iterable[TuningSession]) -> str:
+    return json.dumps([dataclasses.asdict(s) for s in sessions])
+
+
+def sessions_from_json(s: str) -> List[TuningSession]:
+    """Parse one session or a list of sessions."""
+    obj = json.loads(s)
+    if isinstance(obj, dict):
+        obj = [obj]
+    return [TuningSession(**d) for d in obj]
 
 
 class AgentCore:
@@ -312,6 +338,81 @@ class AgentMux:
         return out
 
 
+def agent_main(
+    telemetry_name: str,
+    control_name: str,
+    sessions_json: str,
+    poll_s: float = 0.0005,
+    drain_batch: int = 256,
+    optimizer_defaults_json: Optional[str] = None,
+) -> None:
+    """Entry point of the agent process: one mux over the duplex channel.
+
+    Each idle poll sleeps once and then drains up to ``drain_batch`` records
+    in one pass.  ``optimizer_defaults_json`` replays the host's
+    process-wide optimizer defaults into this freshly spawned interpreter.
+    On exit (every session done, or the host's STOP record) the remaining
+    sessions' best-so-far reports go out."""
+    if optimizer_defaults_json:
+        set_optimizer_defaults(**json.loads(optimizer_defaults_json))
+    chan = MlosChannel.attach(telemetry_name, control_name)
+    mux = AgentMux(sessions_from_json(sessions_json))
+    try:
+        for cmd in mux.start_commands():
+            chan.control.push(cmd)
+        stopped = False
+        while not mux.done and not stopped:
+            batch = chan.telemetry.drain(limit=drain_batch)
+            if not batch:
+                time.sleep(poll_s)
+                continue
+            if _CONTROL_STOP in batch:
+                stopped = True
+                batch = batch[: batch.index(_CONTROL_STOP)]
+            for msg in mux.observe_batch(batch):
+                chan.control.push(msg)
+        for rep in mux.final_reports():
+            chan.control.push(rep)
+    finally:
+        chan.telemetry.close()
+        chan.control.close()
+
+
+class AgentProcess:
+    """Host-side handle that launches and stops the (multi-session) agent
+    daemon over ``channel``.  Started with the ``spawn`` context (see the
+    module docstring); the host's optimizer defaults are snapshotted into
+    the child, whose fresh interpreter would otherwise read the module's."""
+
+    def __init__(self, channel: MlosChannel,
+                 sessions: Union[TuningSession, Sequence[TuningSession]]):
+        self.channel = channel
+        if isinstance(sessions, TuningSession):
+            sessions = [sessions]
+        self.sessions = list(sessions)
+        tele, ctrl = channel.names
+        ctx = multiprocessing.get_context("spawn")
+        self.proc = ctx.Process(
+            target=agent_main,
+            args=(tele, ctrl, sessions_to_json(self.sessions)),
+            kwargs={"optimizer_defaults_json": json.dumps(optimizer_defaults())},
+            daemon=True,
+        )
+
+    def start(self) -> "AgentProcess":
+        self.proc.start()
+        return self
+
+    def stop(self, timeout: float = 5.0) -> None:
+        """Ask the daemon to stop (a STOP record on telemetry), then join;
+        a daemon that does not exit in ``timeout`` is terminated."""
+        self.channel.telemetry.push(_CONTROL_STOP)
+        self.proc.join(timeout)
+        if self.proc.is_alive():  # pragma: no cover
+            self.proc.terminate()
+            self.proc.join(timeout)
+
+
 def drive_session(session: TuningSession, measure: Any) -> AgentCore:
     """Drive ONE session to completion in-process through the packed
     telemetry protocol.  ``measure(settings)`` applies the proposed
@@ -330,16 +431,23 @@ def drive_session(session: TuningSession, measure: Any) -> AgentCore:
 
 
 def promote_session_report(store: Any, msg: Dict[str, Any], *,
+                           rpi: Any = None, run: Any = None,
                            baseline: Optional[Sequence[float]] = None,
                            samples: Optional[Sequence[float]] = None,
                            tolerance: float = 0.05, alpha: float = 0.05) -> bool:
     """Persist a finished session's best config into the config store.
 
-    The session's context keys the entry; ``baseline``/``samples`` (the
-    :func:`stats.compare` gate, oriented by the report's ``mode``) gate it;
-    provenance (budget,
-    evaluations, best objective and ``msg["provenance"]``) rides along.
-    Returns False when the report carries no context or a gate rejects.
+    The session's context keys the entry; ``rpi`` (an
+    :class:`~repro_torch.core.rpi.RPI`, when given) gates the promotion on
+    its bounds over the report's objective (the only metric a report
+    carries: bounds on other metrics are dropped, or they would veto every
+    promotion as missing); ``baseline``/``samples`` (the
+    :func:`stats.compare` gate, oriented by the report's ``mode``) gate it
+    too.  Provenance (the ``run``'s id, budget, evaluations, best objective
+    and ``msg["provenance"]``) rides along, and the tracked ``run`` logs
+    the objective, a ``promoted``/``rejected_rpi`` tag and, on promotion,
+    the config.  Returns False when the report carries no context or a
+    gate rejects.
     """
     from .configstore import Context
 
@@ -349,15 +457,106 @@ def promote_session_report(store: Any, msg: Dict[str, Any], *,
     # Internal values are minimized; recover the raw objective for the gate.
     best_objective = -msg["best_value"] if msg.get("mode") == "max" else msg["best_value"]
     objective = msg.get("objective", "objective")
+    metrics = {objective: best_objective}
+    if rpi is not None:
+        bounds = tuple(b for b in rpi.bounds if b.metric in metrics)
+        rpi = dataclasses.replace(rpi, bounds=bounds) if bounds else None
     provenance = {
+        "run_id": getattr(run, "run_id", None),
         "budget": msg.get("budget"),
         "evaluations": msg.get("evaluations"),
         "objective": objective,
         "best_objective": best_objective,
         **(msg.get("provenance") or {}),
     }
-    return store.promote(ctx, msg["best_config"],
-                         baseline=list(baseline) if baseline else None,
-                         samples=list(samples) if samples else None,
-                         mode=msg.get("mode", "min"), tolerance=tolerance,
-                         alpha=alpha, provenance=provenance)
+    ok = store.promote(ctx, msg["best_config"], rpi=rpi, metrics=metrics,
+                       baseline=list(baseline) if baseline else None,
+                       samples=list(samples) if samples else None,
+                       mode=msg.get("mode", "min"), tolerance=tolerance,
+                       alpha=alpha, provenance=provenance)
+    if run is not None:
+        run.log_metric(f"{ctx.component}@{ctx.workload}/{objective}", best_objective)
+        run.set_tags({f"{ctx.component}@{ctx.workload}":
+                      "promoted" if ok else "rejected_rpi"})
+        if ok:
+            run.log_params({f"{ctx.component}@{ctx.workload}": msg["best_config"]})
+    return ok
+
+
+class TrackedInstance:
+    """Host-side wrapper for a multiplexed drive loop: remembers that a
+    config landed (``dirty``) so the driver knows this instance needs a
+    fresh measurement and telemetry emit.  Register it with
+    :class:`AgentClient` in place of the bare component."""
+
+    def __init__(self, instance: Any, rebuild: bool = True):
+        self.instance = instance
+        self._rebuild = rebuild and hasattr(instance, "apply_and_rebuild")
+        self.dirty = False
+
+    def apply_settings(self, settings: Dict[str, Any]) -> None:
+        if self._rebuild:
+            self.instance.apply_and_rebuild(settings)
+        else:
+            self.instance.apply_settings(settings)
+        self.dirty = True
+
+
+class AgentClient:
+    """System side: applies agent commands to live component instances.
+
+    Instances are keyed by ``(component_name, instance_id)``, so one client
+    can host many instances of a component, each driven by its own session.
+    With a ``store``, session reports that carry a context are promoted
+    into it as they arrive (:func:`promote_session_report`), gated per
+    context by ``rpi_lookup(component, workload) -> RPI | None`` and
+    tracked against ``run`` when given; ``promotions`` records each
+    attempt as ``(context_dict, promoted?)``.
+    """
+
+    def __init__(self, channel: MlosChannel, store: Any = None,
+                 rpi_lookup: Any = None, run: Any = None):
+        self.channel = channel
+        self.store = store
+        self.rpi_lookup = rpi_lookup
+        self.run = run
+        self._instances: Dict[Tuple[str, int], Any] = {}
+        self.reports: List[Dict[str, Any]] = []
+        self.promotions: List[Tuple[Dict[str, str], bool]] = []
+
+    def register(self, name: str, instance: Any, instance_id: int = 0) -> None:
+        self._instances[(name, instance_id)] = instance
+
+    def report_for(self, name: str, instance_id: int = 0) -> Optional[Dict[str, Any]]:
+        for rep in self.reports:
+            if rep["component"] == name and rep.get("instance", 0) == instance_id:
+                return rep
+        return None
+
+    def poll(self, wait_s: float = 0.0, deadline_s: float = 1.0) -> int:
+        """Apply pending config updates; with ``wait_s`` block (sleeping
+        ``wait_s`` between looks, at most ``deadline_s``) until one arrives.
+        Returns how many updates were applied."""
+        applied = 0
+        t0 = time.perf_counter()
+        while True:
+            payload = self.channel.control.pop()
+            if payload is None:
+                if wait_s and applied == 0 and time.perf_counter() - t0 < deadline_s:
+                    time.sleep(wait_s)
+                    continue
+                return applied
+            msg = json.loads(payload.decode())
+            if msg["type"] == "config_update":
+                inst = self._instances.get((msg["component"], msg.get("instance", 0)))
+                if inst is not None:
+                    inst.apply_settings(msg["settings"])
+                    applied += 1
+            elif msg["type"] == "session_report":
+                self.reports.append(msg)
+                if self.store is not None and msg.get("context"):
+                    ctx = msg["context"]
+                    rpi = (self.rpi_lookup(ctx["component"], ctx["workload"])
+                           if self.rpi_lookup else None)
+                    ok = promote_session_report(self.store, msg, rpi=rpi, run=self.run)
+                    self.promotions.append((ctx, ok))

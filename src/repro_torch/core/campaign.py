@@ -196,8 +196,9 @@ class Campaign:
     metric dict.  ``store`` defaults to the process default ConfigStore;
     ``warm_start=False`` forces cold starts.  :data:`BASELINE_REPS`
     default-config measurements per cell are journaled at the cell's start;
-    which samples feed the gate is set out in the module docstring.  The
-    reference's RPI envelope gate is not ported yet.
+    which samples feed the gate is set out in the module docstring.
+    ``rpi_lookup(component, workload) -> RPI | None`` adds the envelope
+    gate: a cell's best objective outside its RPI's bounds is not promoted.
     """
 
     def __init__(
@@ -209,6 +210,7 @@ class Campaign:
         store: Optional[ConfigStore] = None,
         journal_root: Any = CAMPAIGN_ROOT,
         warm_start: bool = True,
+        rpi_lookup: Optional[Callable[[str, str], Any]] = None,
     ):
         ids = [c.cell_id for c in cells]
         if len(set(ids)) != len(ids):
@@ -220,6 +222,7 @@ class Campaign:
         self.store = store if store is not None else default_store()
         self.journal = CampaignJournal(self.campaign_id, root=journal_root)
         self.warm_start = warm_start
+        self.rpi_lookup = rpi_lookup
         self.measure_calls = 0
 
     @staticmethod
@@ -296,8 +299,10 @@ class Campaign:
             "warm_start": warm_info,
             "observations": observations,
         }
+        rpi = self.rpi_lookup(cell.component, cell.workload) if self.rpi_lookup else None
         promoted = self.store.promote(
             cell.context(), best_config,
+            rpi=rpi, metrics={cell.objective: best_raw},
             baseline=baseline or None, samples=best_samples if baseline else None,
             mode=cell.mode, provenance=provenance)
         return promoted, gate, baseline

@@ -23,7 +23,15 @@ wrapper refuses the others before it touches a library.
 A CPU tensor goes to the plain version, :func:`ref.naive_attention`; that
 is the only route to it.  A CUDA tensor launches a kernel or raises.
 ``flash_attention.launches`` counts launches of both kernels, so a run can
-show that its prefill went through them.
+show that its prefill (or train step) went through them.
+
+Gradients.  The TPU kernel has no backward kernel (the reference
+differentiates its jnp path), so neither does this one.  A CUDA input that
+requires grad goes through :class:`FlashAttentionFn`: the forward is the
+kernel, and the backward recomputes :func:`ref.naive_attention` on the
+saved q, k, v with autograd and backpropagates through it — the gradient
+``jax.grad`` gives over the reference's plain path.  The output is never
+detached from its inputs.
 """
 from __future__ import annotations
 
@@ -37,8 +45,8 @@ import torch
 from .. import build
 from . import ref
 
-__all__ = ["flash_attention", "TILES", "HEAD_DIMS", "SOURCES", "smem_bytes", "compiled",
-           "library_smem_bytes"]
+__all__ = ["flash_attention", "FlashAttentionFn", "TILES", "HEAD_DIMS", "SOURCES", "smem_bytes",
+           "compiled", "library_smem_bytes"]
 
 TILES = (64, 128)            # block_q / block_kv values the sources are compiled for
 HEAD_DIMS = (16, 32, 64, 128)
@@ -113,19 +121,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, bloc
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool = True, window: int = 0, q_offset: int = 0,
-    block_q: int = 64, block_kv: int = 64, scale: Optional[float] = None,
-) -> torch.Tensor:
-    """q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0. Returns (B, Sq, H, D).
-
-    Sequences need not divide the tiles: the kernels mask the ragged edge.
-    """
-    if q.device.type == "cpu":
-        return ref.naive_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, scale=scale)
-    _check(q, k, v, block_q, block_kv)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+            q_offset: int, block_q: int, block_kv: int, scale: Optional[float]) -> torch.Tensor:
+    """Allocate the output and launch the dtype's kernel (checked inputs)."""
     b, sq, h, d = q.shape
     _, sk, n_kv, _ = k.shape
     out = torch.empty_like(q)
@@ -138,6 +136,46 @@ def flash_attention(
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient (see the
+    module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, block_q, block_kv, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+        return _launch(q, k, v, causal, window, q_offset, block_q, block_kv, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = ref.naive_attention(*ins, **ctx.opts)
+        dq, dk, dv = torch.autograd.grad(out, ins, dout)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: int = 0, q_offset: int = 0,
+    block_q: int = 64, block_kv: int = 64, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0. Returns (B, Sq, H, D).
+
+    Sequences need not divide the tiles: the kernels mask the ragged edge.
+    Under autograd (an input requires grad) the launch goes through
+    :class:`FlashAttentionFn`.
+    """
+    if q.device.type == "cpu":
+        return ref.naive_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)
+    _check(q, k, v, block_q, block_kv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset, block_q, block_kv,
+                                      scale)
+    return _launch(q, k, v, causal, window, q_offset, block_q, block_kv, scale)
 
 
 flash_attention.launches = 0

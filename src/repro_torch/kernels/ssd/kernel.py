@@ -23,7 +23,15 @@ the only route to it.  A CUDA tensor launches a kernel or raises.  Unlike
 the Pallas kernel, these write the final state they carry (the Pallas
 wrapper recomputes it with the plain version).  ``ssd.launches`` counts
 wrapper calls that launched (one per call, however many passes), so a run
-can show that its prefill went through the kernels.
+can show that its prefill (or train step) went through the kernels.
+
+Gradients.  The TPU kernel has no backward kernel (the reference
+differentiates its jnp path), so neither does this one.  A CUDA input that
+requires grad goes through :class:`SsdFn`: the forward is the kernel, and
+the backward recomputes :func:`ref.ssd_chunked` on the saved inputs with
+autograd and backpropagates through it — the gradient ``jax.grad`` gives
+over the reference's plain path.  An ``init_state`` that requires grad
+raises: the kernel takes none, and no path differentiates through one.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ import torch
 from .. import build
 from . import ref
 
-__all__ = ["ssd", "CHUNKS", "STATE_DIMS", "SOURCES", "TC_HEAD_DIMS"]
+__all__ = ["ssd", "SsdFn", "CHUNKS", "STATE_DIMS", "SOURCES", "TC_HEAD_DIMS"]
 
 CHUNKS = (32, 64)              # compiled chunk lengths
 STATE_DIMS = (16, 128)         # the state sizes of hymba-1.5b and mamba2-780m
@@ -104,21 +112,10 @@ def _check(x, dt, A, B, C, D, chunk: int) -> None:
         raise ValueError("ssd_tc copies x, B and C in 16-byte pieces: they must be 16-byte aligned")
 
 
-def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-        D: Optional[torch.Tensor] = None, *, chunk: int = 64,
-        init_state: Optional[torch.Tensor] = None, return_state: bool = False):
-    """Shapes as :func:`ref.ssd_chunked`; dt, A and D float32.  Returns y
-    (B,S,H,P) in x's dtype, and the final state (B,H,P,N) in float32 if
-    ``return_state``.  The chunk need not divide S: the kernel masks the
-    ragged last chunk.  The kernels start from a zero state: a non-zero
-    ``init_state`` raises on the card (no serving path passes one)."""
-    if x.device.type == "cpu":
-        return ref.ssd_chunked(x, dt, A, B, C, D, chunk=ref.align_chunk(chunk, x.shape[1]),
-                               init_state=init_state, return_state=return_state)
-    _check(x, dt, A, B, C, D, chunk)
-    if init_state is not None and bool(init_state.any()):
-        raise ValueError("the ssd kernel starts from a zero state; a non-zero init_state "
-                         "is not taken")
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, D: Optional[torch.Tensor], chunk: int, return_state: bool):
+    """Allocate y, the state and the scratch, and launch the dtype's kernel
+    (checked inputs).  Returns (y, state or None)."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     y = torch.empty_like(x)
@@ -143,6 +140,54 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: 
     if err != 0:
         raise RuntimeError(f"ssd kernel ({source}) launch failed: CUDA error {err}")
     ssd.launches += 1
+    return y, state
+
+
+class SsdFn(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient (see the
+    module docstring).  Returns y, or (y, state) with ``return_state``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, chunk, return_state):
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.chunk, ctx.return_state = chunk, return_state
+        y, state = _launch(x, dt, A, B, C, D, chunk, return_state)
+        return (y, state) if return_state else y
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) if t is not None else None for t in saved]
+            out = ref.ssd_chunked(*ins, chunk=ref.align_chunk(ctx.chunk, saved[0].shape[1]),
+                                  return_state=ctx.return_state)
+        outs = out if ctx.return_state else (out,)
+        live = [t for t in ins if t is not None]
+        got = iter(torch.autograd.grad(outs, live, grads, allow_unused=True))
+        return (*(next(got) if t is not None else None for t in ins), None, None)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+        D: Optional[torch.Tensor] = None, *, chunk: int = 64,
+        init_state: Optional[torch.Tensor] = None, return_state: bool = False):
+    """Shapes as :func:`ref.ssd_chunked`; dt, A and D float32.  Returns y
+    (B,S,H,P) in x's dtype, and the final state (B,H,P,N) in float32 if
+    ``return_state``.  The chunk need not divide S: the kernel masks the
+    ragged last chunk.  The kernels start from a zero state: a non-zero
+    ``init_state`` raises on the card (no serving path passes one).  Under
+    autograd (an input requires grad) the launch goes through
+    :class:`SsdFn`."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunked(x, dt, A, B, C, D, chunk=ref.align_chunk(chunk, x.shape[1]),
+                               init_state=init_state, return_state=return_state)
+    _check(x, dt, A, B, C, D, chunk)
+    if init_state is not None and (init_state.requires_grad or bool(init_state.any())):
+        raise ValueError("the ssd kernel starts from a zero state; a non-zero init_state, "
+                         "or one that requires grad, is not taken")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, dt, A, B, C, D)):
+        return SsdFn.apply(x, dt, A, B, C, D, chunk, return_state)
+    y, state = _launch(x, dt, A, B, C, D, chunk, return_state)
     return (y, state) if return_state else y
 
 

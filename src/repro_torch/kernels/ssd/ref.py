@@ -46,8 +46,14 @@ def align_chunk(chunk: int, seq: int) -> int:
 
 
 def _expand_groups(b_or_c: torch.Tensor, n_heads: int, axis: int = 2) -> torch.Tensor:
-    """(…, G, N) → (…, H, N) by repeating each group H/G times."""
-    return torch.repeat_interleave(b_or_c, n_heads // b_or_c.shape[axis], dim=axis)
+    """(…, G, N) → (…, H, N) by repeating each group H/G times (head h reads
+    group h // (H/G)).  A broadcast, not ``repeat_interleave``: its gradient
+    is a sum over the repeats, where ``repeat_interleave``'s adds by
+    atomics on the card, in an order that changes from run to run."""
+    shape = b_or_c.shape
+    wide = b_or_c.unsqueeze(axis + 1).expand(*shape[:axis + 1], n_heads // shape[axis],
+                                              *shape[axis + 1:])
+    return wide.reshape(*shape[:axis], n_heads, *shape[axis + 1:])
 
 
 def _with_d(y: torch.Tensor, D: Optional[torch.Tensor], xf: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,18 @@
 """Launch tuning campaigns over declarative component × workload grids.
 
-The port of ``repro/launch/campaign.py`` for the ``kernels``, ``serving``
-and ``demo`` grids: named grids expand to :class:`CampaignCell` lists, each
-component gets a real measurement function
-(:mod:`repro_torch.launch.microbench` for the kernels, a reduced OLMo-1B
-:class:`~repro_torch.runtime.serve_loop.BatchedServer` run for serving, the
-deterministic demo components for ``demo``), and the grid runs through one
+The port of ``repro/launch/campaign.py``: named grids expand to
+:class:`CampaignCell` lists, each component gets a real measurement
+function (:mod:`repro_torch.launch.microbench` for the kernels, a reduced
+OLMo-1B :class:`~repro_torch.runtime.serve_loop.BatchedServer` run for
+serving, a short reduced OLMo-1B ``run_training`` and the input pipeline
+for ``training``, the deterministic demo components for ``demo``), and the
+grid runs through one
 mux with warm-start transfer, a resumable journal and gated promotion into
 the config store:
 
     PYTHONPATH=src python -m repro_torch.launch.campaign --grid kernels      # on the card
     PYTHONPATH=src python -m repro_torch.launch.campaign --grid serving      # on the card
+    PYTHONPATH=src python -m repro_torch.launch.campaign --grid training     # on the card
     PYTHONPATH=src python -m repro_torch.launch.campaign --grid demo --budget 8
     PYTHONPATH=src python -m repro_torch.launch.campaign --id <id> ...       # resume
 
@@ -23,13 +25,19 @@ off the TPU.  On the CPU the cells search the whole space, and ``kernel``
 routes to the plain version there.  A timed cell's promotion is gated on
 interleaved measurements of the default and the best config
 (:mod:`repro_torch.core.campaign`), so the comparator can reach a p-value.
-The ``training`` grid is not ported yet.
+The ``training`` grid's workloads are the signatures the port's
+``run_training`` resolves: ``kb2048`` is the reduced OLMo-1B's train state
+(float32 on the CPU, bf16 on the card: both round up to 2048 KiB), and the
+pipeline's ``b4s128``/``b8s256`` are the (batch, seq) buckets it measures.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import sys
+import tempfile
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,9 +46,11 @@ import torch
 from ..core import smartcomponents as _smart  # noqa: F401 — registers the demo components
 from ..core.campaign import CAMPAIGN_ROOT, Campaign, CampaignCell, CellResult
 from ..core.configstore import ConfigStore, _sig_fields, default_store
+from ..data import pipeline as _pipeline  # noqa: F401 — registers torch_data_pipeline
 from ..kernels.flash_attention import ops as attn_ops
 from ..kernels.rmsnorm import ops as rms_ops
 from ..kernels.ssd import ops as ssd_ops
+from ..runtime import checkpoint as _checkpoint  # noqa: F401 — registers torch_train_checkpoint
 from .microbench import candidate, time_samples_us
 from .tuning import apply_overrides, parse_override
 
@@ -74,6 +84,10 @@ GRIDS: Dict[str, Dict[str, List[str]]] = {
     "serving": {
         "torch_serve_batching": ["reduced_c128", "reduced_c512"],
     },
+    "training": {
+        "torch_train_checkpoint": ["kb2048"],
+        "torch_data_pipeline": ["b4s128", "b8s256"],
+    },
     "demo": {
         "torch_hashtable": ["n1024l2", "n2048l2", "n4096l4"],
         "torch_spinlock": ["heavy2", "heavy8"],
@@ -92,6 +106,8 @@ _OBJECTIVES = {
     "torch_rmsnorm_kernel": ("time_us", "min"),
     "torch_ssd_kernel": ("time_us", "min"),
     "torch_serve_batching": ("tokens_per_s", "max"),
+    "torch_train_checkpoint": ("overhead_ms", "min"),
+    "torch_data_pipeline": ("batch_ms", "min"),
     "torch_hashtable": ("collisions", "min"),
     "torch_spinlock": ("throughput_ops_s", "max"),
 }
@@ -226,6 +242,86 @@ def _measure_serve(cell: CampaignCell, settings: Dict[str, Any], reps: int,
             ("tokens_per_s", "p50_latency_s", "queue_depth", "live_slots")}
 
 
+def train_config(device: str):
+    """Reduced OLMo-1B for the training cells: the config's float32 on the
+    CPU (the reference's), bf16 on the card (the dtype training runs in)."""
+    from ..configs import get_config
+
+    cfg = get_config("olmo-1b").reduced().validate()
+    return dataclasses.replace(cfg, dtype="bfloat16") if device.startswith("cuda") else cfg
+
+
+def _measure_train_checkpoint(cell: CampaignCell, settings: Dict[str, Any], reps: int,
+                              device: str) -> Dict[str, float]:
+    """A short real training run under the proposed checkpoint policy.
+
+    ``blocked_ms``: wall time the train loop spent inside save().
+    ``recovery_ms``: measured restore latency from the run's own checkpoints
+    plus re-training half an interval.  ``overhead_ms``: the tuned
+    objective — blocked time plus the *expected* recovery bill, P_fault ×
+    steps × recovery: a huge interval minimizes blocked time but loses half
+    an interval of work per fault; a tiny one pays save cost every step."""
+    from ..runtime.checkpoint import restore_checkpoint
+    from ..runtime.steps import init_train_state
+    from ..runtime.train_loop import run_training
+
+    del reps
+    p_fault = 0.05  # faults per step, pessimistic cluster assumption
+    n_steps = 8
+    cfg = train_config(device)
+    with tempfile.TemporaryDirectory() as td:
+        out = run_training(cfg, n_steps=n_steps, global_batch=2, seq_len=32,
+                           ckpt_dir=td, ckpt_overrides=dict(settings),
+                           seed=cell.seed, device=device)
+        blocked_ms = 1000.0 * float(out["ckpt_counters"]["blocked_s"])
+        gen = torch.Generator(device=device).manual_seed(cell.seed)
+        template = init_train_state(cfg, gen, device)
+        t0 = time.perf_counter()
+        restore_checkpoint(td, template)
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        restore_ms = 1000.0 * (time.perf_counter() - t0)
+    step_ms = 1000.0 * float(np.median([h["step_time_s"] for h in out["history"]] or [0.0]))
+    every = int(settings["ckpt_every"])
+    recovery_ms = restore_ms + 0.5 * min(every, n_steps) * step_ms
+    overhead_ms = blocked_ms + p_fault * n_steps * recovery_ms
+    return {"blocked_ms": blocked_ms, "recovery_ms": recovery_ms, "overhead_ms": overhead_ms}
+
+
+def _measure_data_pipeline(cell: CampaignCell, settings: Dict[str, Any], reps: int,
+                           device: str) -> Dict[str, float]:
+    """Consumer-side batch latency under the proposed prefetch settings.
+
+    The proposal goes through the store's override tier for exactly this
+    workload, the signature ``PrefetchingBatcher`` computes from (batch,
+    seq), so the measurement exercises the resolution path.  A 2 ms gap
+    between fetches (the "train step") gives look-ahead something to
+    overlap with.  The pipeline is numpy on the host: ``device`` is not
+    used."""
+    from ..data.pipeline import PackedBatcher, PrefetchingBatcher, SyntheticCorpus
+
+    del reps, device
+    f = _sig_fields(cell.workload)
+    gb, seq = int(f["b"]), int(f["s"])
+    store = default_store()
+    store.set_override(cell.component, cell.workload, dict(settings))
+    try:
+        pf = PrefetchingBatcher(PackedBatcher(SyntheticCorpus(512, seed=cell.seed), gb, seq))
+        if pf.prefetch_depth != int(settings["prefetch_depth"]):
+            raise RuntimeError(f"the override did not resolve: depth {pf.prefetch_depth}")
+        lat = []
+        for step in range(16):
+            t0 = time.perf_counter()
+            pf.batch_at(step)
+            lat.append(1000.0 * (time.perf_counter() - t0))
+            time.sleep(0.002)
+        stall_ms = 1000.0 * float(pf.counters["stall_s"])
+        pf.close()
+    finally:
+        store.clear_override(cell.component, cell.workload)
+    return {"batch_ms": float(np.median(lat)), "stall_ms": stall_ms}
+
+
 def _measure_hashtable(cell: CampaignCell, settings: Dict[str, Any], reps: int,
                        device: str) -> Dict[str, float]:
     from ..core.smartcomponents import TunableHashTable, hashtable_workload
@@ -252,6 +348,8 @@ _MEASURES = {
     "torch_rmsnorm_kernel": _measure_rmsnorm,
     "torch_ssd_kernel": _measure_ssd,
     "torch_serve_batching": _measure_serve,
+    "torch_train_checkpoint": _measure_train_checkpoint,
+    "torch_data_pipeline": _measure_data_pipeline,
     "torch_hashtable": _measure_hashtable,
     "torch_spinlock": _measure_spinlock,
 }
@@ -271,7 +369,8 @@ def run_grid(grid: str, *, budget: int = 12, optimizer: str = "bo", seed: int = 
              store: Optional[ConfigStore] = None, journal_root: Any = CAMPAIGN_ROOT,
              reps: int = 3, warm_start: bool = True) -> Tuple[Campaign, Dict[str, CellResult]]:
     """Build the grid's cells and measure, run the campaign, return both.
-    A kernels or serving grid on a CUDA device that finds none raises."""
+    A kernels, serving or training grid on a CUDA device that finds none
+    raises."""
     if grid != "demo" and torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"the {grid} grid runs on the card and no CUDA device is visible; "
                            "pass device='cpu' to run it on the CPU")

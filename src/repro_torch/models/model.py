@@ -13,24 +13,35 @@ all three for a hybrid layer.  :func:`decode_step` updates every leaf in
 place (K/V rows and each SSM state), so a captured decode step can hold the
 state; :func:`merge_slot` writes one slot in place, and :func:`install_slot`
 writes slots named by a device tensor together with their ``(tok, pos,
-done)``.  ``loss_fn`` comes with training.
+done)``.
+
+Training: :func:`loss_fn` is the next-token cross-entropy over sequence
+chunks of ``torch_layer_stack.loss_chunk`` (:func:`_chunked_ce`), so the
+(B, S, V) logits are never materialized when the sequence is longer than
+a chunk; each chunk body is recomputed in the backward pass.  The
+embedding lookup is ``F.embedding``, whose gradient on the card sorts the
+token ids and sums each id's rows in a fixed order (no float atomics), so
+a train step gives the same bits every time it runs on the same inputs.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from .attention import attn_cache_spec
 from .config import ModelConfig
 from .layers import P, apply_norm, dtype_of, init_leaf, norm_params, torch_dtype
 from .ssm import ssm_state_spec
 from .transformer import (FAMILIES, block_specs, decode_stack, forward_stack, prefill_stack,
-                          stack_specs)
+                          stack_settings, stack_specs, stack_workload)
 
 __all__ = [
-    "param_specs", "init_params", "unstack_blocks", "forward", "logits_fn", "cache_specs",
-    "init_cache", "cache_batch_axes", "merge_slot", "install_slot", "prefill", "decode_step",
+    "param_specs", "init_params", "unstack_blocks", "forward", "logits_fn", "loss_fn",
+    "cache_specs", "init_cache", "cache_batch_axes", "merge_slot", "install_slot", "prefill",
+    "decode_step",
 ]
 
 
@@ -73,7 +84,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device: Union[str,
 
 # ------------------------------------------------------------------- forward
 def _embed(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    return F.embedding(tokens, params["embed"])
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -94,6 +105,53 @@ def logits_fn(params: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor) -> torc
         mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
         logits = torch.where(mask, logits, -1e30)
     return logits
+
+
+def _ce_chunk(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab: int):
+    """(sum of the valid positions' NLL, their count) over one chunk.  The
+    label logit is a gather: on one device nothing is gained by the
+    reference's iota compare, which exists for a vocab-sharded logits
+    tensor (each row gathers one entry, so its gradient adds nothing twice)."""
+    logits = (h @ w).float()
+    if logits.shape[-1] != vocab:
+        mask = torch.arange(logits.shape[-1], device=logits.device) < vocab
+        logits = torch.where(mask, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return torch.sum((lse - ll) * valid), torch.sum(valid)
+
+
+def _chunked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Next-token CE over sequence chunks of ``loss_chunk`` (halved until it
+    divides S).  With more than one chunk, each chunk's body is recomputed
+    in the backward pass (the reference's ``jax.checkpoint`` over its scan)."""
+    b, s, _ = h.shape
+    chunk = min(stack_settings.settings_for(
+        stack_workload(cfg.family, b, s, cfg.n_layers))["loss_chunk"], s)
+    while s % chunk:
+        chunk //= 2
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        args = (h[:, c0:c0 + chunk], w, labels[:, c0:c0 + chunk], cfg.vocab_size)
+        if chunk == s or not torch.is_grad_enabled():
+            part, n = _ce_chunk(*args)
+        else:
+            part, n = _ckpt.checkpoint(_ce_chunk, *args, use_reentrant=False)
+        nll, cnt = nll + part, cnt + n
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params: Dict[str, Any], cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens (B, S) and labels (B, S) integer tensors (label -1 =
+    pad).  Returns (loss, {"ce", "aux"}); ``aux`` is the MoE balance loss,
+    zero for the families the port runs."""
+    h = forward(params, cfg, batch["tokens"])
+    ce = _chunked_ce(h, _out_weight(params, cfg), batch["labels"], cfg)
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
 
 # ------------------------------------------------------------------- serving

@@ -109,17 +109,21 @@ def _ssd_inputs(params: Dict[str, torch.Tensor], dt: torch.Tensor):
     return dtp, a, params["D"].float()
 
 
-def apply_ssm(params: Dict[str, torch.Tensor], x: torch.Tensor,
-              cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def apply_ssm(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+              return_state: bool = True) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full-sequence mixer from a zero state (the port's prefill and forward
     never continue one).  x (B, S, d) → (B, S, d) and the decode state
-    {"conv": the last conv_k-1 inputs, "ssd": the final SSD state}."""
+    {"conv": the last conv_k-1 inputs, "ssd": the final SSD state}, or None
+    without ``return_state`` (training keeps no decode state)."""
     z, dt, u, conv_w = _conv_input(params, x, cfg)
     xs, bs, cs = _split_conv_channels(cfg, _causal_conv(u, conv_w))
     dtp, a, d = _ssd_inputs(params, dt)
-    y, state = ssd_ops.ssd(xs, dtp, a, bs, cs, d, return_state=True)
+    y = ssd_ops.ssd(xs, dtp, a, bs, cs, d, return_state=return_state)
+    y, state = y if return_state else (y, None)
     y = _gated_norm(y, z, params["norm_scale"])
     out = y.reshape(*y.shape[:2], -1) @ params["wo"].reshape(-1, cfg.d_model)
+    if not return_state:
+        return out, None
     hist = cfg.ssm_conv - 1
     conv = u[:, -hist:]
     if conv.shape[1] < hist:  # short prefill: left-pad the history

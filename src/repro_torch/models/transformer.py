@@ -11,18 +11,33 @@ PyTorch runs eagerly, so the port holds one parameter dict per layer and
 loops over them.  The other block kinds (MoE, encoder-decoder, VLM) come
 with their families.
 
-``stack_settings`` is the ``torch_layer_stack`` component.  It declares
-the reference's tunable space so the port's tuned contexts keep it, and
-nothing here reads it yet: ``remat`` (activation checkpointing) and
-``loss_chunk`` (the cross-entropy chunk) belong to training, which the
-serving slices do not run, and ``scan_layers`` has no torch meaning.
+``stack_settings`` is the ``torch_layer_stack`` component, resolved per
+:func:`stack_workload` as in the reference.  ``remat`` is the activation
+checkpoint applied to each layer of :func:`forward_stack` under autograd
+(``torch.utils.checkpoint``, non-reentrant):
+
+  * ``none`` — no checkpoint: every layer's activations are kept;
+  * ``full`` — keep each layer's input only, recompute the layer in the
+    backward pass (the reference's ``jax.checkpoint``);
+  * ``dots`` — a selective checkpoint that keeps the outputs of the
+    matrix products (``aten.mm``, ``bmm``, ``addmm``) and recomputes the
+    rest (``jax.checkpoint_policies.checkpoint_dots``).
+
+Under ``full`` and ``dots`` the recompute runs the layer's Python again,
+so each attention or SSD kernel launches twice per layer and step (once
+forward, once recomputed); under ``none`` once.  ``loss_chunk`` is read
+by the model's chunked cross-entropy.  ``scan_layers`` has no torch
+meaning and is kept for the tunable space.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple, Union
+import functools
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
+from ..core.configstore import bucket_pow2
 from ..core.registry import MetricSpec, tunable_component
 from ..core.tunable import Categorical, Int
 from .attention import apply_attn, apply_attn_decode, attn_params
@@ -30,8 +45,8 @@ from .config import ModelConfig
 from .layers import P, apply_mlp, apply_norm, mlp_params, norm_params
 from .ssm import apply_ssm, apply_ssm_decode, ssm_params
 
-__all__ = ["FAMILIES", "stack_settings", "block_specs", "stack_specs", "forward_stack",
-           "prefill_stack", "decode_stack"]
+__all__ = ["FAMILIES", "stack_settings", "stack_workload", "block_specs", "stack_specs",
+           "remat_wrap", "forward_stack", "prefill_stack", "decode_stack"]
 
 FAMILIES = ("dense", "ssm", "hybrid")   # the model families the port runs
 
@@ -53,6 +68,13 @@ class StackSettings:
 
 
 stack_settings = StackSettings()
+
+
+def stack_workload(kind: str, b: int, s: int, n_layers: int) -> str:
+    """Bucketed stack-call signature: family × batch × seq × depth.  A train
+    pass at (b=8, s=2048) and a prefill at (b=1, s=64) resolve their own
+    remat and loss-chunk choices."""
+    return f"{kind}_b{bucket_pow2(b)}s{bucket_pow2(s)}l{n_layers}"
 
 
 # --------------------------------------------------------------------- specs
@@ -93,28 +115,64 @@ def _pad_kv(k: torch.Tensor, cfg: ModelConfig, cap: int) -> torch.Tensor:
     return torch.cat([k, pad], dim=1)  # slots [0, sl) filled; pos continues at sl
 
 
-def _block(lp: Dict[str, Any], x: torch.Tensor,
-           cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
+def _block(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+           keep_state: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One full-sequence block.  Returns (x, the layer's decode state): K/V
     of every position for attention, the conv history and SSD state for an
-    SSM mixer."""
+    SSM mixer; an empty state without ``keep_state``."""
     state: Dict[str, Any] = {}
     xn = apply_norm(lp["ln1"], x, cfg)
     if cfg.family == "ssm":
-        y, state["ssm"] = apply_ssm(lp["ssm"], xn, cfg)
+        y, ssm_state = apply_ssm(lp["ssm"], xn, cfg, return_state=keep_state)
+        if keep_state:
+            state["ssm"] = ssm_state
         return x + y, state
-    h, (state["k"], state["v"]) = apply_attn(lp["attn"], xn, cfg, causal=True)
+    h, kv = apply_attn(lp["attn"], xn, cfg, causal=True)
+    if keep_state:
+        state["k"], state["v"] = kv
     if cfg.family == "hybrid":
-        s, state["ssm"] = apply_ssm(lp["ssm"], xn, cfg)
+        s, ssm_state = apply_ssm(lp["ssm"], xn, cfg, return_state=keep_state)
+        if keep_state:
+            state["ssm"] = ssm_state
         h = (h + s) / 2.0
     x = x + h
     return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg), state
 
 
+def _layer(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One block of the train/forward pass: no decode state is kept."""
+    return _block(lp, x, cfg, keep_state=False)[0]
+
+
+def _save_dots(ctx: Any, op: Any, *args: Any, **kwargs: Any) -> Any:
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+    return CheckpointPolicy.MUST_SAVE if op in dots else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the activation-checkpoint ``policy`` (module docstring)."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        context = functools.partial(_ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False, context_fn=context)
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
 def forward_stack(layers: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence pass over the layer stack."""
+    """Full-sequence pass over the layer stack.  Under autograd each layer
+    runs under the resolved ``remat`` policy; without it, as it is."""
+    layer = _layer
+    if torch.is_grad_enabled():
+        s = stack_settings.settings_for(stack_workload(cfg.family, x.shape[0], x.shape[1],
+                                                       cfg.n_layers))
+        layer = remat_wrap(_layer, s["remat"])
     for lp in layers:
-        x, _ = _block(lp, x, cfg)
+        x = layer(lp, x, cfg)
     return x
 
 

@@ -188,8 +188,10 @@ class BatchedServer:
     Fixed shapes (batch = max_batch, cache = capacity) for the whole run;
     empty slots decode garbage that is discarded.  ``settings`` pins
     explicit tunable values; anything not pinned resolves through
-    ``serve_settings.settings_for(workload)``.  ``emitter`` is any object
-    with ``.emit(dict)``; it receives rolling tokens/s, p50 latency, queue
+    ``serve_settings.settings_for(workload)``.  ``emitter`` is a
+    :class:`~repro_torch.core.telemetry.TelemetryEmitter` bound to
+    ``torch_serve_batching`` on an MLOS channel (or any object with
+    ``.emit(dict)``); it receives rolling tokens/s, p50 latency, queue
     depth and live slots at each sync and the run's totals at its end.
     ``params`` must already live on ``device``.  ``step`` chooses how the
     compiled steps run (see the module docstring): ``"graph"``, the

@@ -163,7 +163,8 @@ def test_runner_gate_fails_on_a_planted_2x_regression(tmp_path, monkeypatch):
 def test_runner_cli_lists_the_twins_and_check_rejects_a_bad_record(tmp_path, capsys):
     assert runner.main(["--list"]) == 0
     assert capsys.readouterr().out.split() == ["serve_scenarios", "online_tuning",
-                                               "kernel_autotune", "configstore_roundtrip"]
+                                               "kernel_autotune", "configstore_roundtrip",
+                                               "fault_tolerance"]
     bad = {"quick": True, "scenarios": {"heavy_tail": {
         mode: {"tokens_per_s": [1.0, 2.0], "p99_latency_s": [0.1, 0.1], "total_tokens": t}
         for mode, t in (("gang", 10.0), ("continuous", 11.0))}},

@@ -5,8 +5,10 @@ chip smoke script's main-path phase runs here on the CPU at reduced size,
 so its control flow is rehearsed before it reaches the card.
 """
 import ast
+import dataclasses
 import importlib.util
 import json
+import math
 import os
 import pkgutil
 import re
@@ -49,7 +51,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=env, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(_modules()) >= 42
+    assert len(_modules()) >= 55
 
 
 def test_the_ssm_slice_is_covered():
@@ -124,6 +126,56 @@ def test_the_tensor_core_ssd_is_covered():
     assert (PORT / "csrc" / "ssd_tc.cu").read_text().count("mma.sync.aligned.m16n8k16") == 1
 
 
+def test_the_train_slice_is_covered():
+    """The training path and the agent daemon are among what the checks
+    here walk: schedules, AdamW, the tree helpers, the data pipeline, the
+    checkpoint, fault, chaos, steps and train loop, the channel, telemetry,
+    and the fault-tolerance twin."""
+    assert {"repro_torch.tree", "repro_torch.optim.schedules", "repro_torch.optim.adamw",
+            "repro_torch.data.pipeline", "repro_torch.runtime.checkpoint",
+            "repro_torch.runtime.fault", "repro_torch.runtime.chaos", "repro_torch.runtime.steps",
+            "repro_torch.runtime.train_loop", "repro_torch.core.channel",
+            "repro_torch.core.telemetry", "repro_torch.bench.fault_tolerance"} <= set(_modules())
+
+
+def test_the_spawned_agent_imports_no_torch():
+    """The agent daemon's process (spawned) imports the module of its target
+    and what that pulls in: none of it is torch (no CUDA in the side-car),
+    jax or the reference."""
+    code = ("import json, pickle, sys\n"
+            "from repro_torch.core import agent\n"
+            "pickle.loads(pickle.dumps(agent.agent_main))\n"
+            "from repro_torch.core.optimizers import make_optimizer\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'repro'))\n"
+            "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_kernels_add_by_no_atomics():
+    """The train step is deterministic on the card: no source of a kernel it
+    runs adds through atomics (whose order changes from run to run)."""
+    for path in sorted((PORT / "csrc").glob("*.cu")):
+        assert "atomic" not in path.read_text(), path.name
+
+
+def test_training_refuses_a_missing_card(monkeypatch):
+    """No CPU fallback: training and the fault twin on a CUDA device that
+    is not there raise."""
+    from repro_torch.bench import fault_tolerance
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.train_loop import run_training
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training(get_config("olmo-1b").reduced(), n_steps=1, global_batch=2, seq_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fault_tolerance.run(quick=True)
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_nothing_of_jax_or_repro(path):
     roots = {name.split(".")[0] for name in _imported(ast.parse(path.read_text()))}
@@ -144,18 +196,21 @@ def test_entry_points_default_to_cuda():
     server's steps default to CUDA graphs there."""
     import inspect
 
-    from repro_torch.bench import configstore_roundtrip, kernel_autotune
+    from repro_torch.bench import configstore_roundtrip, fault_tolerance, kernel_autotune
+    from repro_torch.convert import train_state_from_reference
     from repro_torch.models import model
-    from repro_torch.runtime import serve_loop
+    from repro_torch.runtime import serve_loop, steps, train_loop
     from repro_torch.runtime.serve_loop import BatchedServer
 
     for fn in (model.init_params, model.init_cache, BatchedServer.__init__, kernel_autotune.run,
-               kernel_autotune.bench, configstore_roundtrip.run, configstore_roundtrip.bench):
+               kernel_autotune.bench, configstore_roundtrip.run, configstore_roundtrip.bench,
+               steps.init_train_state, train_loop.run_training, fault_tolerance.run,
+               fault_tolerance.bench, train_state_from_reference):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert inspect.signature(BatchedServer.__init__).parameters["step"].default is None
     assert serve_loop.resolve_step(None, torch.device("cuda")) == "graph"
     assert serve_loop.resolve_step(None, torch.device("cpu")) == "eager"
-    for argv_main in (kernel_autotune.main, configstore_roundtrip.main):
+    for argv_main in (kernel_autotune.main, configstore_roundtrip.main, fault_tolerance.main):
         src = inspect.getsource(argv_main)
         assert 'ap.add_argument("--device", default="cuda"' in src
 
@@ -381,3 +436,64 @@ def test_chip_smoke_checks_every_attention_shape_its_serving_phases_run(chip_smo
                for b, sq, sk, _, _, _, w, o in seen}
     assert {b for b, *_ in seen} == {twin.MAX_BATCH, 1}       # gang and continuous prefills
     assert widened <= checked, sorted(widened - checked)
+
+
+def test_chip_smoke_train_paths_on_cpu(chip_smoke, tmp_path):
+    """The train phases' function at reduced size on the CPU: a first run
+    checkpoints, a second resumes where it stopped, every loss is finite,
+    no kernel launched; the MFU numerator and the launch factor the card
+    is held to."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("olmo-1b").reduced()
+    out = chip_smoke.train_main_path("cpu", cfg, batch=2, seq=32, steps=3, resume_to=4,
+                                     ckpt_every=2, ckpt_dir=tmp_path)
+    first, second = out["runs"]
+    assert [r["step"] for r in first["rows"]] == [0, 1, 2]
+    assert [r["step"] for r in second["rows"]] == [3]
+    assert first["ckpt"]["saves"] == 2 and second["ckpt"]["saves"] == 1
+    assert out["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}
+    assert chip_smoke._remat_factor(get_config("olmo-1b"), 8, 2048) == 2
+    full = get_config("olmo-1b")
+    want = 6.0 * full.param_count() * 8 * 2048 + 12.0 * 16 * 8 * 2048 * 2048 * 16 * 128 / 2
+    assert chip_smoke.train_flops(full, 8, 2048) == pytest.approx(want)
+    assert chip_smoke.train_flops(get_config("mamba2-780m"), 4, 1024) == pytest.approx(
+        6.0 * get_config("mamba2-780m").param_count() * 4 * 1024)
+    assert chip_smoke.TRAIN_GRAD_SHAPES["olmo-1b attention"] == (8, 2048, full.n_heads,
+                                                                 full.n_kv_heads, full.hd)
+    m2 = get_config("mamba2-780m")
+    assert chip_smoke.TRAIN_GRAD_SHAPES["mamba2-780m ssd"] == (4, 1024, m2.ssm_heads,
+                                                               m2.ssm_head_dim, m2.ssm_state,
+                                                               m2.ssm_groups)
+
+
+def test_chip_smoke_step_grad_path_on_cpu(chip_smoke):
+    """The whole-step gradient check at reduced size on the CPU (where the
+    kernel's path is the plain one): every dtype and depth reported, finite
+    norms, the worst leaf named; float32 agrees exactly, bf16 is held to
+    the float32 gradient."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(), dtype="bfloat16").validate()
+    out = chip_smoke.phase_train_step_grad("cpu", "cpu", cfg, batch=2, seq=32, depths=(1,))
+    assert set(out) == {f"{d} {n} layers" for d in ("bfloat16", "float32")
+                        for n in (1, cfg.n_layers)}
+    for key, row in out.items():
+        assert math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0 and row["worst_leaf"]
+        if key.startswith("float32"):                 # the same plain path twice
+            assert row["grad_norm_rel"] == 0.0 and row["worst_leaf_rel"] == 0.0
+        else:                                         # bf16 against the float32 gradient
+            assert row["against"] == "the float32 plain path"
+            assert 0 < row["worst_leaf_rel"] <= row["tol"][1]
+
+
+@pytest.mark.slow
+def test_chip_smoke_agent_path_on_cpu(chip_smoke):
+    """The agent phase's function at reduced size on the CPU: a spawned
+    daemon tunes ``lr_scale`` of a live run, every update lands on its
+    steps, the report arrives and the daemon exits."""
+    from repro_torch.configs import get_config
+
+    out = chip_smoke.agent_main_path("cpu", get_config("olmo-1b").reduced(), batch=2, seq=32)
+    assert len(out["applied"]) == 5 and out["report"]["evaluations"] == 4
+    assert len(out["history"]) == 10 and out["launches"]["flash_attention"] == 0
