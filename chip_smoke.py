@@ -163,9 +163,33 @@ Phases, in order; any failure exits non-zero before the result lines:
                      ``AgentClient`` and ``lr_scale_source``; fails unless
                      every update lands, a session report arrives and the
                      daemon exits.
+ 19. optimizer    — the torch GP engine (``repro_torch.core.optimizers.
+                     engine``, float64) on the card: the
+                     ``optimizer_throughput`` twin at the reference's full
+                     size (d 6, n 25/100/200, pool 1280, 8 sessions at
+                     histories 25 and 100): ask ms numpy against torch,
+                     tell and refit ms, sequential against batched ms, and
+                     runs / captures / replays per program (suggest, append
+                     and the batched suggest must be replays of programs
+                     captured per shape class); suggestions at fixed hypers
+                     identical on the card, the CPU and the numpy backend
+                     (3 seeds x 3 asks), fitted θ within ``THETA_RTOL`` of
+                     the CPU's, the batched ask of 8 equal to 8 sequential
+                     asks.  Then the ``campaign_sweep`` twin at full size
+                     with the numpy default and with every BO on the
+                     engine (warm beats cold, every cell promoted under
+                     this card); the ``kernels`` grid with
+                     ``optimizer.backend=torch`` at bo budget 12 into a
+                     temporary store (all 8 cells done and promoted, its
+                     launches counted into the ``kernels`` line as
+                     ``optimizer-grid``); and a spawned daemon with the
+                     optimizer defaults ``{"backend": "torch", "device":
+                     "cuda"}`` driving the ``multi_instance`` twin's 4
+                     ``bo_torch`` sessions, whose bests must equal an
+                     in-process drive of the same sessions.
 
 Phases 11-13 run after the campaign phase, before the profiles; phases
-14-18 after the profiles, once the serving phases' servers, weights and
+14-19 after the profiles, once the serving phases' servers, weights and
 graph pools are released.  The script sets ``CUBLAS_WORKSPACE_CONFIG``
 before its first product.  Each phase
 from 11 on prints its wall time; after each phase the script prints the
@@ -2296,6 +2320,232 @@ def phase_agent(device, card: str, batch: int = 4, seq: int = 512) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ optimizer
+OPT_PARITY_SEEDS = (0, 1, 2)
+OPT_PARITY_ASKS = 3
+THETA_RTOL = 1e-8            # fitted θ on the card against the CPU (measured ~1e-14)
+SCORE_ATOL = 1e-8            # acquisition scores on the card against the CPU (the
+                             # reference's numpy-parity tolerance)
+
+
+def optimizer_variants_path(device) -> dict:
+    """Two kernels and three acquisitions of one shape class (d 6, bucket
+    64, pool 1280) in one process: an rbf and a matern32 engine, each asked
+    with EI, UCB at β 2 and at β 3 in turn, score the pool as a fresh
+    engine on the CPU asked only that way does (argmax equal, scores within
+    SCORE_ATOL).  Returns the number of asks compared and the largest
+    score difference."""
+    from repro_torch.core.optimizers.engine import TorchGP
+
+    rng = np.random.default_rng(11)
+    X, y, cand = rng.random((40, 6)), rng.standard_normal(40), rng.random((1280, 6))
+
+    def engine(kernel, dev):
+        eng = TorchGP(6, kernel=kernel, device=dev)
+        for xi, yi in zip(X, y):
+            eng.observe(xi, yi)
+        return eng
+
+    asks, worst = 0, 0.0
+    for kernel in ("rbf", "matern32"):
+        eng = engine(kernel, device)
+        for acq, beta in (("ei", 2.0), ("ucb", 2.0), ("ucb", 3.0)):
+            idx, scores = eng.suggest(cand, acq, beta)
+            ref_idx, ref = engine(kernel, "cpu").suggest(cand, acq, beta)
+            err = float(np.max(np.abs(scores - ref)))
+            if idx != ref_idx or not err <= SCORE_ATOL:
+                raise AssertionError(f"{kernel} {acq} beta {beta} on {device}: argmax {idx} vs "
+                                     f"cpu {ref_idx}, max score diff {err}")
+            asks, worst = asks + 1, max(worst, err)
+    return {"asks": asks, "max_abs_err": worst}
+
+
+def optimizer_main_path(device, *, quick: bool = False) -> dict:
+    """The GP engine on ``device``: the throughput twin (the reference's full
+    size unless ``quick``), then suggestion parity at fixed hypers (the
+    torch engine on ``device``, the same engine on the CPU and the numpy
+    backend propose the same configs, 3 seeds x 3 asks) and the fitted θ on
+    ``device`` against the CPU's.  Raises unless suggest and append ran as
+    programs built per shape class (on the card: captured once, then
+    replayed) and the batched ask returned the sequential asks' configs."""
+    from repro_torch.bench import optimizer_throughput as ot
+    from repro_torch.core.compilecache import step_counts
+    from repro_torch.core.optimizers.engine import batched_ask
+
+    before = step_counts()
+    res = ot.run(quick=quick, device=device)
+    steps = {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v}
+             for k, v in step_counts().items() if k.startswith("gp.")}
+    on_card = torch.device(device).type == "cuda"
+    for key in ("gp.suggest", "gp.append", "gp.suggest_batched"):
+        c = steps[key]
+        if on_card and (c["captures"] + c["replays"] != c["runs"] or c["replays"] <= c["captures"]):
+            raise AssertionError(f"{key}: {c}: not replays of programs captured per shape class")
+
+    rows = []
+    for seed in OPT_PARITY_SEEDS:
+        opts = [ot.with_history(backend, seed, 25, dev, fit_hypers=False)
+                for backend, dev in (("torch", device), ("torch", "cpu"), ("numpy", "cpu"))]
+        for _ in range(OPT_PARITY_ASKS):
+            cfgs = [o.ask() for o in opts]
+            if cfgs[0] != cfgs[1] or cfgs[0] != cfgs[2]:
+                raise AssertionError(f"seed {seed}: {device} / cpu / numpy suggested {cfgs}")
+            rows.append(cfgs[0])
+            for o, c in zip(opts, cfgs):
+                o.tell(c, ot.objective(c))
+    fitted = [ot.with_history("torch", 1, 40, dev) for dev in (device, "cpu")]
+    for o in fitted:
+        o.ask()
+    th_dev, th_cpu = (o._engine.theta for o in fitted)
+    theta_rel = float(np.max(np.abs(th_dev / th_cpu - 1.0)))
+    if not theta_rel <= THETA_RTOL:
+        raise AssertionError(f"fitted theta on {device} {th_dev} vs cpu {th_cpu}: rel {theta_rel}")
+    variants = optimizer_variants_path(device)
+    seq = [ot.with_history("torch", 7 + s, 25, device) for s in range(8)]
+    bat = [ot.with_history("torch", 7 + s, 25, device) for s in range(8)]
+    for _ in range(2):
+        a, b = [o.ask() for o in seq], batched_ask(bat)
+        if a != b:
+            raise AssertionError(f"the batched ask of 8 sessions {b} != sequential {a}")
+        for o, c in zip(seq + bat, a + b):
+            o.tell(c, ot.objective(c))
+    return {"throughput": res, "steps": steps, "parity_asks": len(rows),
+            "variants": variants,
+            "theta": {"device": th_dev.tolist(), "cpu": th_cpu.tolist(), "rel": theta_rel}}
+
+
+def optimizer_sweep_path(device, *, quick: bool = False, out_dir) -> dict:
+    """The campaign-sweep twin with the numpy default and with every BO on
+    the torch engine on ``device``: warm beats cold both times, and every
+    target cell is promoted under this process's hardware fingerprint."""
+    from repro_torch.bench import campaign_sweep, check
+    from repro_torch.core.configstore import hardware_fingerprint
+
+    out = {}
+    for backend in ("numpy", "torch"):
+        res = campaign_sweep.run(quick=quick, backend=backend, device=device,
+                                 out_dir=Path(out_dir) / backend)
+        check.check_campaign_sweep(expect_quick=quick, bench_dir=Path(out_dir) / backend)
+        hw = {row["promoted_under"] for row in res["cells"].values()}
+        if hw != {hardware_fingerprint()}:
+            raise AssertionError(f"{backend}: cells promoted under {hw}")
+        out[backend] = res
+    return out
+
+
+def optimizer_grid_path(device, *, budget: int = 12, quick: bool = False) -> dict:
+    """The ``kernels`` grid with ``optimizer.backend=torch`` (on ``device``)
+    into a temporary store and journal: every cell done and promoted; the
+    kernels' launches during the grid."""
+    import tempfile
+
+    from repro_torch.core import configstore
+    from repro_torch.core.optimizers import optimizer_defaults, set_optimizer_defaults
+    from repro_torch.launch import campaign as launch
+    from repro_torch.launch.tuning import apply_overrides, parse_override
+
+    kernels = _kernels()
+    old = optimizer_defaults()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_optimizer_grid_") as tmp:
+        store = configstore.ConfigStore(Path(tmp) / "store")
+        old_store = configstore.set_default_store(store)
+        try:
+            for s in ("optimizer.backend=torch", f"optimizer.device={torch.device(device).type}"):
+                apply_overrides(parse_override(s))
+            for fn in kernels.values():              # counts of this path only
+                fn.launches = 0
+            t0 = time.perf_counter()
+            camp, results = launch.run_grid("kernels", budget=budget, optimizer="bo", seed=0,
+                                            quick=quick, device=device,
+                                            campaign_id="chip-smoke-optimizer", store=store,
+                                            journal_root=Path(tmp) / "journal")
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in kernels.items()}
+            done = set(camp.journal.completed())
+        finally:
+            set_optimizer_defaults(**old)
+            configstore.set_default_store(old_store)
+    cell_ids = {c.cell_id for c in camp.cells}
+    if done != cell_ids:
+        raise AssertionError(f"cells without a cell_done row: {sorted(cell_ids - done)}")
+    if not all(r.promoted for r in results.values()):
+        raise AssertionError("cells not promoted: "
+                             + "; ".join(launch.describe(r) for r in results.values()
+                                         if not r.promoted))
+    return {"results": results, "launches": launches, "wall_s": wall,
+            "measure_calls": camp.measure_calls}
+
+
+def optimizer_daemon_path(device, *, out_dir, budget: int = 16) -> dict:
+    """A spawned agent daemon with the optimizer defaults ``{"backend":
+    "torch", "device": device}`` drives the multi-instance twin's 4
+    ``bo_torch`` sessions on ``torch_hashtable``; its bests, value and
+    config, must equal an in-process drive of the same sessions."""
+    from repro_torch.bench import multi_instance
+    from repro_torch.core.optimizers import optimizer_defaults, set_optimizer_defaults
+
+    old = optimizer_defaults()
+    set_optimizer_defaults(backend="torch")
+    try:
+        res = multi_instance.run(budget=budget, optimizer="bo_torch", device=device,
+                                 out_dir=out_dir)
+    finally:
+        set_optimizer_defaults(**old)
+    bad = {k: v for k, v in res["instances"].items()
+           if not v["identical"] or v["evaluations"] != budget}
+    if bad:
+        raise AssertionError(f"daemon bests differ from the in-process drive: {bad}")
+    return res
+
+
+def phase_optimizer(device, card: str) -> dict:
+    """Phase 19: the GP engine on the card (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.launch.campaign import describe
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_optimizer_") as tmp:
+        main_out = optimizer_main_path(device)
+        sweep = optimizer_sweep_path(device, out_dir=tmp)
+        grid = optimizer_grid_path(device)
+        daemon = optimizer_daemon_path(device, out_dir=tmp)
+    thr = main_out["throughput"]
+    for n, row in thr["ask_latency_ms"].items():
+        e = thr["engine"][n]
+        print(f"optimizer: n={n} (bucket {e['ask_bucket']}): ask numpy {row['numpy']:.2f} ms, "
+              f"torch {row['torch']:.4f} ms ({row['speedup']:.1f}x); first asks "
+              f"{[round(t, 2) for t in e['first_asks_ms']]} ms; then tell {e['tell_ms']:.4f} ms "
+              f"and refit {e['refit_ms']:.3f} ms (to n={e['n_after']}, bucket {e['bucket']}) "
+              f"({card})")
+    for h, row in thr["batched"].items():
+        print(f"optimizer: 8 sessions at n={h}: sequential {row['sequential_ms']:.3f} ms, batched "
+              f"{row['batched_ms']:.3f} ms ({row['speedup']:.2f}x)")
+    print("optimizer: programs (runs / captures / replays): " + ", ".join(
+        f"{k} {v['runs']}/{v['captures']}/{v['replays']}" for k, v in sorted(main_out["steps"].items())))
+    print(f"optimizer: {main_out['parity_asks']} asks at fixed hypers identical on {device}, cpu "
+          f"and numpy; fitted theta rel diff {main_out['theta']['rel']:.3g} "
+          f"(tol {THETA_RTOL}); batched ask of 8 = sequential; {main_out['variants']['asks']} asks "
+          f"over rbf/matern32 x ei/ucb(2)/ucb(3) at one shape class equal fresh cpu engines, "
+          f"max score diff {main_out['variants']['max_abs_err']:.3g} (tol {SCORE_ATOL})")
+    for backend, res in sweep.items():
+        print(f"optimizer: campaign sweep ({backend}): cold {res['cold_iters_total']} -> warm "
+              f"{res['warm_iters_total']} evals, every cell promoted under {res['hardware']}, "
+              f"wall {res['wall_s']:.2f} s")
+    print(f"optimizer: kernels grid with optimizer.backend=torch, bo budget 12: "
+          f"{len(grid['results'])} cells done and promoted, {grid['measure_calls']} measurements, "
+          f"wall {grid['wall_s']:.1f} s, launches {grid['launches']}")
+    for _, r in sorted(grid["results"].items()):
+        print("optimizer: " + describe(r))
+    print(f"optimizer: spawned daemon (backend torch on {device}), 4 bo_torch sessions, budget 16: "
+          f"bests {[v['multiplexed_best'] for v in daemon['instances'].values()]} and their "
+          f"configs equal the in-process drive's; wall {daemon['multiplexed_wall_s']:.1f} s")
+    print(f"optimizer: phase wall {time.perf_counter() - t0:.1f} s")
+    return {"launches": grid["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on a GPU", file=sys.stderr)
@@ -2363,6 +2613,8 @@ def main() -> int:
     phase_fault(card)
     path_launches["agent"] = phase_agent(device, card)["launches"]
     _memory("agent", t_start)
+    path_launches["optimizer-grid"] = phase_optimizer(device, card)["launches"]
+    _memory("optimizer", t_start)
 
     def launches(kernel_name):
         by_path = {name: n[kernel_name] for name, n in path_launches.items()

@@ -1,7 +1,8 @@
 """The port's benchmarks: twins of the reference's
 ``benchmarks/serve_scenarios.py``, ``benchmarks/online_tuning.py``,
-``benchmarks/kernel_autotune.py``, ``benchmarks/configstore_roundtrip.py`` and
-``benchmarks/fault_tolerance.py``,
+``benchmarks/kernel_autotune.py``, ``benchmarks/configstore_roundtrip.py``,
+``benchmarks/fault_tolerance.py``, ``benchmarks/optimizer_throughput.py``,
+``benchmarks/campaign_sweep.py`` and ``benchmarks/multi_instance.py``,
 their runner with its regression gate (:mod:`.runner`) and their smoke
 checks (:mod:`.check`).  Everything they write goes under :data:`BENCH_ROOT`, the
 repository's ``results/torch/bench/``, never into the reference's

@@ -2,10 +2,13 @@
 
 The port of ``benchmarks/check_bench.py``'s ``check_serve_scenarios``,
 ``check_online_tuning``, ``check_kernel_autotune``,
-``check_configstore_resolve`` and ``check_fault_tolerance``, reading
-``serve_scenarios.json``, ``online_tuning.json``, ``kernel_autotune.json``,
-``configstore_resolve.json`` and ``fault_tolerance.json`` from a bench
-directory (by default
+``check_configstore_resolve``, ``check_fault_tolerance``,
+``check_optimizer_throughput``, ``check_campaign_sweep`` and
+``check_multi_instance``, reading the JSON each twin writes
+(``serve_scenarios.json``, ``online_tuning.json``, ``kernel_autotune.json``,
+``configstore_resolve.json``, ``fault_tolerance.json``,
+``optimizer_throughput.json``, ``campaign_sweep.json``,
+``multi_instance.json``) from a bench directory (by default
 :data:`~repro_torch.bench.BENCH_ROOT`).  Each check is filed under the name
 of the twin that writes its JSON; the runner calls it after that twin, and
 a failing assertion points at a line here.
@@ -132,12 +135,48 @@ def check_fault_tolerance(expect_quick: Optional[bool] = None,
     _expect(v["candidate_location"] < v["baseline_location"], v)
 
 
+def check_optimizer_throughput(expect_quick: Optional[bool] = None,
+                               bench_dir: Any = BENCH_ROOT) -> None:
+    d = _load("optimizer_throughput", expect_quick, bench_dir)
+    _expect(d["ask_latency_ms"], "no ask-latency points recorded")
+    for n, row in d["ask_latency_ms"].items():
+        _expect(row["numpy"] > 0 and row["torch"] > 0 and row["speedup"] > 0, (n, row))
+        _expect(len(row["numpy_samples"]) > 0 and len(row["torch_samples"]) > 0, (n, row))
+    _expect(d["batched"], "no batched points recorded")
+    for n, row in d["batched"].items():
+        _expect(row["sessions"] >= 2 and row["batched_ms"] > 0, (n, row))
+
+
+def check_campaign_sweep(expect_quick: Optional[bool] = None,
+                         bench_dir: Any = BENCH_ROOT) -> None:
+    d = _load("campaign_sweep", expect_quick, bench_dir)
+    _expect(d["cells"], "no campaign cells recorded")
+    _expect(d["warm_iters_total"] < d["cold_iters_total"], (
+        f"warm-start did not beat cold: warm {d['warm_iters_total']} vs "
+        f"cold {d['cold_iters_total']} total iterations-to-best"))
+    for cid, row in d["cells"].items():
+        _expect(row["promoted"], f"{cid}: best config was not promoted")
+        _expect(row["warm_source"], f"{cid}: warm cell has no transfer source")
+
+
+def check_multi_instance(expect_quick: Optional[bool] = None,
+                         bench_dir: Any = BENCH_ROOT) -> None:
+    d = _load("multi_instance", expect_quick, bench_dir)
+    _expect(d["instances"], "no instances recorded")
+    for name, row in d["instances"].items():
+        _expect(row["no_worse"], (f"{name}: multiplexed best {row['multiplexed_best']} worse "
+                                  f"than baseline {row['baseline_best']}"))
+
+
 CHECKS = {
     "serve_scenarios": check_serve_scenarios,
     "online_tuning": check_online_tuning,
     "kernel_autotune": check_kernel_autotune,
     "configstore_roundtrip": check_configstore_resolve,
     "fault_tolerance": check_fault_tolerance,
+    "optimizer_throughput": check_optimizer_throughput,
+    "campaign_sweep": check_campaign_sweep,
+    "multi_instance": check_multi_instance,
 }
 
 

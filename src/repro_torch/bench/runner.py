@@ -2,7 +2,8 @@
 
 The port of ``benchmarks/runner.py`` over the port's twins only
 (``serve_scenarios``, ``online_tuning``, ``kernel_autotune``,
-``configstore_roundtrip``, ``fault_tolerance``).  Every
+``configstore_roundtrip``, ``fault_tolerance``, ``optimizer_throughput``,
+``campaign_sweep``, ``multi_instance``).  Every
 registered benchmark exposes ``bench(quick, seed, device=, out_dir=) ->
 [BenchRecord]``; the runner runs them, checks each twin's JSON
 (:mod:`.check`), gates each record against its stored context-keyed
@@ -73,6 +74,24 @@ def _configstore_roundtrip(quick: bool, seed: int, **kw: Any) -> List[BenchRecor
 @register("fault_tolerance")
 def _fault_tolerance(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
     from . import fault_tolerance as m
+    return m.bench(quick=quick, seed=seed, **kw)
+
+
+@register("optimizer_throughput")
+def _optimizer_throughput(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
+    from . import optimizer_throughput as m
+    return m.bench(quick=quick, seed=seed, **kw)
+
+
+@register("campaign_sweep")
+def _campaign_sweep(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
+    from . import campaign_sweep as m
+    return m.bench(quick=quick, seed=seed, **kw)
+
+
+@register("multi_instance")
+def _multi_instance(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
+    from . import multi_instance as m
     return m.bench(quick=quick, seed=seed, **kw)
 
 

@@ -28,8 +28,10 @@ The daemon starts with the ``spawn`` context, never ``fork``: the host
 holds a CUDA context and threads that a forked child must not inherit.
 The spawned interpreter imports this module, the channel, the optimizers
 (numpy, scipy) and the tunable space, and nothing that imports torch, so
-it never touches the card.  Every optimizer here asks on its own (the
-reference's batched jax ask has no counterpart).
+with the default numpy backend it never touches the card.  With the
+optimizer defaults ``{"backend": "torch", "device": "cuda"}`` its BO
+sessions build the torch GP engine, which imports torch there and prices
+the whole mux on the card in one batched ask per poll.
 """
 from __future__ import annotations
 
@@ -302,8 +304,13 @@ class AgentMux:
 
     def observe_batch(self, payloads: Sequence[bytes]) -> List[bytes]:
         """Route a batch of records; every session that finished a config
-        asks for its next proposal at the end of the batch (results equal
-        the serial :meth:`observe` loop: each optimizer owns its rng)."""
+        asks for its next proposal at the end of the batch, all in one
+        batched ask.  With torch-backed BO sessions the whole mux's suggest
+        sweep is one program per signature
+        (:class:`~.optimizers.engine.BatchedBayesOpt`); other optimizers ask
+        one by one.  Results equal the serial :meth:`observe` loop: asks are
+        deferred only to the end of the batch, and each optimizer owns its
+        rng."""
         out: List[bytes] = []
         need: List[AgentCore] = []
         for payload in payloads:
@@ -321,8 +328,14 @@ class AgentMux:
             if kind == "ask":
                 need.append(core)
             self._maybe_report(core, out)
-        for core in need:
-            out.append(core.resolve_ask(core.opt.ask()))
+        if any(getattr(c.opt, "backend", None) == "torch" for c in need):
+            from .optimizers.engine import batched_ask  # deferred: torch is heavy
+
+            cfgs = batched_ask([c.opt for c in need])
+        else:
+            cfgs = [c.opt.ask() for c in need]
+        for core, cfg in zip(need, cfgs):
+            out.append(core.resolve_ask(cfg))
         return out
 
     def final_reports(self) -> List[bytes]:

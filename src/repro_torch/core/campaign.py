@@ -6,11 +6,14 @@ declarative grid of :class:`CampaignCell`\\ s and drives them all:
   * **One mux, one round at a time** — every cell is a
     :class:`~repro_torch.core.agent.TuningSession` behind one
     :class:`~repro_torch.core.agent.AgentMux`; each round measures every
-    pending proposal and feeds the batch to ``observe_batch``.
+    pending proposal and feeds the batch to ``observe_batch``, so with
+    torch-backed BO (``optimizer.backend=torch``) the round's next
+    proposals are one batched ask of the GP engine, not N model refits.
   * **Warm-start transfer** — a new cell seeds its optimizer with the
     observations of the nearest stored context
     (:meth:`ConfigStore.nearest_entry`, which never crosses a hardware
-    platform).  Priors never count as evaluations.
+    platform): ``inject_prior``, which on the torch engine is one bulk
+    ``seed_observations``.  Priors never count as evaluations.
   * **Resumable journal** — every evaluation and cell completion appends to
     ``results/campaign/<id>.jsonl`` (append-only, schema-versioned); a
     campaign resumed under the same id skips completed cells exactly, with

@@ -314,11 +314,11 @@ class Graphs:
     def __init__(self, capture: bool):
         self.capture = capture
         self.pool = _new_pool() if capture else None
-        self.bound: Dict[Tuple[str, Tuple], BoundStep] = {}
+        self.bound: Dict[Tuple[str, Hashable, Tuple], BoundStep] = {}
 
     def _tally(self, count: Callable[[BoundStep], int]) -> Dict[str, int]:
         out: Dict[str, int] = {}
-        for (key, _), step in self.bound.items():
+        for (key, _, _), step in self.bound.items():
             if count(step):
                 out[key] = out.get(key, 0) + count(step)
         return out
@@ -331,17 +331,21 @@ class Graphs:
     def replays(self) -> Dict[str, int]:
         return self._tally(lambda step: step.replays)
 
-    def bind(self, key: str, fn: Callable, *args: Any) -> BoundStep:
-        """``fn(*args)`` as a step of this owner, memoized by ``key`` and the
-        args' shape class.  ``fn`` writes its results into ``args`` and
-        returns nothing.  The same key and shape class on other buffers
-        raise: a graph never replays against buffers it was not captured on."""
+    def bind(self, key: str, fn: Callable, *args: Any, variant: Hashable = None) -> BoundStep:
+        """``fn(*args)`` as a step of this owner, memoized by ``key``,
+        ``variant`` and the args' shape class.  ``variant`` names what the
+        shapes do not show (a kernel, a constant of the program), so two
+        programs of one key may share a shape class, or even buffers; counts
+        stay per ``key``.  ``fn`` writes its results into ``args`` and
+        returns nothing.  The same key, variant and shape class on other
+        buffers raise: a graph never replays against buffers it was not
+        captured on."""
         leaves = _leaves(args)
         shape_class, binding = _shape_class(leaves), _binding(leaves)
-        step = self.bound.get((key, shape_class))
+        memo = (key, variant, shape_class)
+        step = self.bound.get(memo)
         if step is None:
-            step = self.bound[(key, shape_class)] = BoundStep(key, fn, args, binding,
-                                                              self.capture, self.pool)
+            step = self.bound[memo] = BoundStep(key, fn, args, binding, self.capture, self.pool)
         elif step.binding != binding:
             raise ValueError(f"{key}: already bound to other buffers of this shape class; "
                              "a graph replays only on the buffers it was captured on")

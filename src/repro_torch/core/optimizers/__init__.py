@@ -1,6 +1,8 @@
 """Ask/tell optimizers over a TunableSpace — the port of
-``repro/core/optimizers``, numpy backend only (``backend="jax"`` and the
-``bo_jax*`` names are refused)."""
+``repro/core/optimizers``.  BO has the numpy backend and the torch engine
+(``backend="torch"``, the names ``bo_torch*``); the reference's
+``backend="jax"`` and ``bo_jax*`` names are refused with their torch
+counterparts named."""
 from .base import Observation, Optimizer, optimize
 from .bayesopt import BACKENDS, BayesOpt
 from .gaussian_process import GP, KERNELS
@@ -14,16 +16,24 @@ __all__ = [
 ]
 
 # Process-wide defaults applied by make_optimizer when the caller does not
-# pin them (``optimizer.backend=...`` from launch/tuning.py).
-_DEFAULTS: dict = {"backend": "numpy"}
+# pin them: the launch CLI flips every BO it builds to the torch engine with
+# one override (``optimizer.backend=torch``, see launch/tuning.py); ``device``
+# is the torch engine's.
+_DEFAULTS: dict = {"backend": "numpy", "device": "cuda"}
+_JAX_COUNTERPART = ("the port's torch engine: backend='torch', or bo_torch, bo_torch_matern32, "
+                    "bo_torch_rbf")
 
 
 def set_optimizer_defaults(**kw) -> None:
     unknown = set(kw) - set(_DEFAULTS)
     if unknown:
         raise ValueError(f"unknown optimizer defaults {sorted(unknown)}")
+    if kw.get("backend") == "jax":
+        raise ValueError(f"backend 'jax' is the reference's; use {_JAX_COUNTERPART}")
     if "backend" in kw and kw["backend"] not in BACKENDS:
         raise ValueError(f"unknown backend {kw['backend']!r}: the port has {BACKENDS}")
+    if "device" in kw and not isinstance(kw["device"], str):
+        raise ValueError(f"device must be a string such as 'cuda' or 'cpu': {kw['device']!r}")
     _DEFAULTS.update(kw)
 
 
@@ -39,6 +49,8 @@ def make_optimizer(name: str, space, seed: int = 0, **kw):
         return GridSearch(space, seed, **kw)
     if name in ("oaat", "one_at_a_time"):
         return OneAtATime(space, seed, **kw)
+    if name.startswith("bo") or name in ("bayesopt", "gp"):
+        kw.setdefault("device", _DEFAULTS["device"])
     if name in ("bo", "bayesopt", "gp"):
         kw.setdefault("backend", _DEFAULTS["backend"])
         return BayesOpt(space, seed, **kw)
@@ -48,7 +60,11 @@ def make_optimizer(name: str, space, seed: int = 0, **kw):
     if name in ("bo_matern32", "bo_matern"):
         kw.setdefault("backend", _DEFAULTS["backend"])
         return BayesOpt(space, seed, kernel="matern32", **kw)
+    if name in ("bo_torch", "bo_torch_matern32"):
+        return BayesOpt(space, seed, kernel="matern32", backend="torch", **kw)
+    if name in ("bo_torch_rbf",):
+        return BayesOpt(space, seed, kernel="rbf", backend="torch", **kw)
     if name.startswith("bo_jax"):
-        raise ValueError(f"optimizer {name!r} needs the jax engine; the port has the numpy "
-                         "backend only")
+        raise ValueError(f"optimizer {name!r} is the reference's jax engine; use "
+                         f"{_JAX_COUNTERPART}")
     raise ValueError(f"unknown optimizer {name!r}")

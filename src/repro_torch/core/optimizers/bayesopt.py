@@ -4,11 +4,20 @@ Minimization convention.  The space is embedded into [0,1]^d via
 ``TunableSpace.encode``; candidates are a random pool plus local
 perturbations of the incumbent, scored by the acquisition function.
 
-The port of ``repro/core/optimizers/bayesopt.py`` with its ``numpy``
-backend only: the scipy GP of :mod:`.gaussian_process`, refit per ask.  The
-reference's jax engine has no counterpart here yet; ``backend="jax"`` is
-refused.  With the same seed and observations the port proposes the
-reference's numpy configs, ask for ask.
+The port of ``repro/core/optimizers/bayesopt.py``.  Two interchangeable
+surrogate backends (``backend=`` ctor arg):
+
+  * ``"numpy"`` — the reference path: scipy GP refit from scratch per ask.
+  * ``"torch"`` — :class:`~.engine.TorchGP` on ``device`` (the card unless
+    the caller asks for the CPU): incremental Cholesky on tell, one
+    captured program per ask, and batchable across sessions via
+    :class:`~.engine.BatchedBayesOpt`.  The counterpart of the reference's
+    ``"jax"`` backend, which the port refuses.
+
+Candidate generation (and therefore the rng stream) is shared between the
+backends, so with hyperparameter fitting disabled the two are argmax-
+equivalent.  With the same seed and observations the port's numpy backend
+proposes the reference's numpy configs, ask for ask.
 """
 from __future__ import annotations
 
@@ -18,12 +27,12 @@ import numpy as np
 from scipy.stats import norm
 
 from ..tunable import TunableSpace
-from .base import Optimizer
+from .base import Observation, Optimizer
 from .gaussian_process import GP
 
 __all__ = ["BayesOpt", "dedup_rows", "BACKENDS"]
 
-BACKENDS = ("numpy",)
+BACKENDS = ("numpy", "torch")
 
 
 def dedup_rows(X: np.ndarray, y: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -59,6 +68,7 @@ class BayesOpt(Optimizer):
         ucb_beta: float = 2.0,
         backend: str = "numpy",
         fit_hypers: bool = True,
+        device: Any = "cuda",
     ):
         super().__init__(space, seed)
         if backend not in BACKENDS:
@@ -70,6 +80,12 @@ class BayesOpt(Optimizer):
         self.ucb_beta = ucb_beta
         self.backend = backend
         self.fit_hypers = fit_hypers
+        self.device = device     # the torch backend's; the numpy backend ignores it
+        self._engine = None      # lazy: keeps torch out of numpy-only processes
+        if backend == "torch":
+            from .engine import require_device  # deferred import: torch is heavy
+
+            self.device = require_device(device)
         # Warm-start state: prior observations from a related context seed
         # the surrogate (never history) and replay their incumbent first.
         self._prior_X = np.zeros((0, len(space)), dtype=np.float64)
@@ -100,6 +116,8 @@ class BayesOpt(Optimizer):
             self._prior_best = self.space.validate(obs[bi][0])
             self._prior_best_y = obs[bi][1]
             self._prior_replayed = False
+        if self.backend == "torch":
+            self._engine_for().seed_observations(X, y)
         return len(y)
 
     @property
@@ -113,6 +131,18 @@ class BayesOpt(Optimizer):
                 and len(self.history) + self.n_prior >= self.n_init)
 
     # -- shared helpers -------------------------------------------------------
+    def _engine_for(self):
+        if self._engine is None:
+            from .engine import TorchGP  # deferred import: torch is heavy
+
+            self._engine = TorchGP(len(self.space), kernel=self.kernel,
+                                   fit_hypers=self.fit_hypers, device=self.device)
+        return self._engine
+
+    def _on_tell(self, obs: Observation) -> None:
+        if self.backend == "torch":
+            self._engine_for().observe(self.space.encode(obs.config), obs.value)
+
     def _candidates(self, inc: np.ndarray) -> np.ndarray:
         """Random pool + local perturbations of the incumbent (the
         reference's rng draw order)."""
@@ -131,6 +161,13 @@ class BayesOpt(Optimizer):
         ei = imp * norm.cdf(z) + sd * norm.pdf(z)
         return np.where(sd > 1e-12, ei, 0.0)
 
+    def _model_inputs(self):
+        """(engine, candidates, acq_id, beta) for the batched ask path.
+        Draws this ask's candidate pool: call once per ask."""
+        eng = self._engine_for()
+        cand = self._candidates(eng.incumbent())
+        return eng, cand, (1 if self.acquisition == "ucb" else 0), self.ucb_beta
+
     # -- ask ------------------------------------------------------------------
     def _ask(self) -> Dict[str, Any]:
         if self._prior_best and not self._prior_replayed and not self.history:
@@ -139,11 +176,16 @@ class BayesOpt(Optimizer):
             return dict(self._prior_best)
         if len(self.history) + self.n_prior < self.n_init:
             return self.space.sample(self.rng)
+        if self.backend == "torch":
+            eng, cand, _, beta = self._model_inputs()
+            idx, _ = eng.suggest(cand, self.acquisition, beta)
+            return self.space.decode(cand[idx])
         X = self.space.encode_batch([o.config for o in self.history])
         y = np.array([o.value for o in self.history])
         if self.n_prior:
-            # Prior rows first (injection order), history folded on top
-            # keep-best by the dedup below.
+            # Priors seed the surrogate exactly like the torch engine's padded
+            # buffers: prior rows first (injection order), history folded on
+            # top keep-best by the dedup below.
             X = np.concatenate([self._prior_X, X])
             y = np.concatenate([self._prior_y, y])
         X, y = dedup_rows(X, y)

@@ -15,6 +15,8 @@ the config store:
     PYTHONPATH=src python -m repro_torch.launch.campaign --grid training     # on the card
     PYTHONPATH=src python -m repro_torch.launch.campaign --grid demo --budget 8
     PYTHONPATH=src python -m repro_torch.launch.campaign --id <id> ...       # resume
+    PYTHONPATH=src python -m repro_torch.launch.campaign --grid kernels \
+        --set optimizer.backend=torch                     # every BO on the torch GP engine
 
 The ``kernels`` and ``serving`` grids run on the card unless ``--device
 cpu`` is given, and need one: they do not fall back to the CPU.  On a CUDA
@@ -29,6 +31,9 @@ The ``training`` grid's workloads are the signatures the port's
 ``run_training`` resolves: ``kb2048`` is the reduced OLMo-1B's train state
 (float32 on the CPU, bf16 on the card: both round up to 2048 KiB), and the
 pipeline's ``b4s128``/``b8s256`` are the (batch, seq) buckets it measures.
+``--set optimizer.backend=torch`` puts every BO cell on the torch GP engine
+(one batched ask per round for the whole mux), on ``optimizer.device``: the
+card by default, ``--set optimizer.device=cpu`` for the CPU.
 """
 from __future__ import annotations
 
@@ -416,7 +421,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--store", default=None, help="config store root (default: results/configstore)")
     ap.add_argument("--journal-root", default=str(CAMPAIGN_ROOT), help="campaign journal directory")
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
-                    help="launch override, e.g. torch_ssd_kernel@b1s256h48.chunk=32")
+                    help="launch override, e.g. torch_ssd_kernel@b1s256h48.chunk=32 "
+                         "or optimizer.backend=torch")
     ap.add_argument("--list", action="store_true", help="print the grid and exit")
     args = ap.parse_args(argv)
 

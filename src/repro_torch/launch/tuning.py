@@ -8,8 +8,11 @@ over the port's components.
     in-process override tier; outranks stored entries for that context only)
   * ``component.key=value`` — sets the key on the component's module
     singleton (its explicit tier, for every workload)
-  * ``optimizer.backend=numpy`` — the optimizer pseudo-component; the port
-    has the numpy backend only, so ``optimizer.backend=jax`` is refused.
+  * ``optimizer.backend=torch`` — the optimizer pseudo-component: flips
+    every BO the launch builds onto the torch GP engine
+    (``make_optimizer``'s default), on ``optimizer.device`` (``cuda``, the
+    default, or ``cpu``).  The reference's ``optimizer.backend=jax`` is
+    refused.
 
 Values are cast using the target component's tunable spec, not guessed from
 their spelling.
@@ -44,6 +47,8 @@ SINGLETONS = {
 OPTIMIZER_SPACE = TunableSpace([
     Categorical("backend", "numpy", BACKENDS,
                 description="BO suggest engine for launch-constructed optimizers"),
+    Categorical("device", "cuda", ("cuda", "cpu"),
+                description="device of the torch BO engine"),
 ])
 
 

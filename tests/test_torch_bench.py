@@ -11,7 +11,9 @@ cost per decode step, per prefill and per host fetch, the costs the host
 pays on the card, where it sets the pace.  The verdicts then follow the
 schedulers' work (decode steps, prefills, syncs) and are reproducible; the
 pipeline from replay to record, check and gate is the real one.  Nothing
-here measures a speed.
+here measures a speed.  The GP engine's twins (``optimizer_throughput``,
+``campaign_sweep``, ``multi_instance``) run at quick size on the CPU; their
+checks judge no time either.
 """
 from __future__ import annotations
 
@@ -30,14 +32,16 @@ from repro.core import baseline as jbaseline
 from repro.core import rpi as jrpi
 from repro.core import tracking as jtracking
 from repro.runtime import online as jonline
-from repro_torch.bench import (BENCH_ROOT, check, configstore_roundtrip, kernel_autotune,
-                               online_tuning, runner, serve_scenarios)
+from repro_torch.bench import (BENCH_ROOT, campaign_sweep, check, configstore_roundtrip,
+                               kernel_autotune, multi_instance, online_tuning,
+                               optimizer_throughput, runner, serve_scenarios)
 from repro_torch.core import baseline, configstore, rpi, tracking
 from repro_torch.core import campaign as tcampaign
 from repro_torch.core.baseline import BenchRecord
 from repro_torch.launch import campaign as tlaunch
 from repro_torch.models import model as M
 from repro_torch.runtime import online, serve_loop
+from torch_threads import one_thread
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -164,7 +168,8 @@ def test_runner_cli_lists_the_twins_and_check_rejects_a_bad_record(tmp_path, cap
     assert runner.main(["--list"]) == 0
     assert capsys.readouterr().out.split() == ["serve_scenarios", "online_tuning",
                                                "kernel_autotune", "configstore_roundtrip",
-                                               "fault_tolerance"]
+                                               "fault_tolerance", "optimizer_throughput",
+                                               "campaign_sweep", "multi_instance"]
     bad = {"quick": True, "scenarios": {"heavy_tail": {
         mode: {"tokens_per_s": [1.0, 2.0], "p99_latency_s": [0.1, 0.1], "total_tokens": t}
         for mode, t in (("gang", 10.0), ("continuous", 11.0))}},
@@ -261,6 +266,77 @@ def test_serving_grid_refuses_the_card_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tlaunch.run_grid("serving", device="cuda")
+
+
+# ------------------------------------- optimizer throughput, campaign sweep, multi-instance
+def test_optimizer_throughput_quick_passes_its_check(tmp_path):
+    """The twin at quick size on the CPU: the reference's space, pool and
+    sizes, a ``torch`` column beside ``numpy``, the engine's tell and refit
+    times and its programs' counts; records under this process's ``cpu:``
+    context."""
+    with one_thread():
+        recs = optimizer_throughput.bench(quick=True, device="cpu", out_dir=tmp_path)
+    check.check_optimizer_throughput(expect_quick=True, bench_dir=tmp_path)
+    d = json.loads((tmp_path / "optimizer_throughput.json").read_text())
+    assert (d["d"], d["n_candidates"], d["device"]) == (6, 1280, "cpu")
+    assert list(d["ask_latency_ms"]) == ["25"] and list(d["batched"]) == ["16"]
+    e = d["engine"]["25"]
+    assert (e["ask_bucket"], e["n_after"], e["bucket"]) == (32, 30, 32) and e["tell_ms"] > 0
+    assert d["steps"]["gp.suggest"]["runs"] > 0 and d["steps"]["gp.suggest_batched"]["runs"] > 0
+    assert [r.metric for r in recs] == ["ask_ms/numpy/n25", "ask_ms/torch/n25",
+                                        "batched_ms/s8h16"]
+    assert all(r.context.hardware.startswith("cpu:") for r in recs)
+    bad = dict(d, batched={"16": dict(d["batched"]["16"], sessions=1)})
+    (tmp_path / "optimizer_throughput.json").write_text(json.dumps(bad))
+    with pytest.raises(AssertionError):
+        check.check_optimizer_throughput(bench_dir=tmp_path)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_campaign_sweep_quick_warm_beats_cold(tmp_path, monkeypatch, backend):
+    """The twin at quick size on the CPU with either BO backend: warm beats
+    cold, every target cell promoted under this process's fingerprint, the
+    optimizer defaults restored; the JSON passes the port's check and the
+    reference's (``check_bench.check_campaign_sweep``)."""
+    from repro_torch.core.optimizers import optimizer_defaults
+
+    before = optimizer_defaults()
+    with one_thread():
+        res = campaign_sweep.run(quick=True, backend=backend, device="cpu", out_dir=tmp_path)
+    assert optimizer_defaults() == before
+    check.check_campaign_sweep(expect_quick=True, bench_dir=tmp_path)
+    monkeypatch.setattr(jcheck_bench, "BENCH_DIR", tmp_path)     # the reference's own check
+    jcheck_bench.check_campaign_sweep(expect_quick=True)
+    assert list(res["cells"]) == ["torch_hashtable@s256", "torch_hashtable@s2048"]
+    assert {row["promoted_under"] for row in res["cells"].values()} == {
+        configstore.hardware_fingerprint()}
+    assert (tmp_path / "campaign_sweep" / "store_warm").is_dir()
+
+
+def test_multi_instance_quick_daemon_matches_the_baseline(tmp_path, monkeypatch):
+    """The twin at quick size: one spawned daemon over four ``rs`` sessions
+    reaches each in-process baseline's best; both checks pass."""
+    recs = multi_instance.bench(quick=True, device="cpu", out_dir=tmp_path)
+    check.check_multi_instance(expect_quick=True, bench_dir=tmp_path)
+    monkeypatch.setattr(jcheck_bench, "BENCH_DIR", tmp_path)     # the reference's own check
+    jcheck_bench.check_multi_instance(expect_quick=True)
+    d = json.loads((tmp_path / "multi_instance.json").read_text())
+    assert d["budget"] == 6 and d["optimizer"] == "rs"
+    assert all(r["identical"] and r["evaluations"] == 6 for r in d["instances"].values())
+    assert len(recs[0].values) == 2 and recs[0].context.workload == "hashtable_x4b6"
+
+
+def test_the_engine_twins_refuse_the_card_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optimizer_throughput.run(quick=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        campaign_sweep.run(quick=True, backend="torch")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multi_instance.run_baseline(budget=2, optimizer="bo_torch")
+    for fn in (optimizer_throughput.run, optimizer_throughput.bench, campaign_sweep.run,
+               campaign_sweep.bench, multi_instance.run, multi_instance.bench):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 # ------------------------------------------------------------------ defaults

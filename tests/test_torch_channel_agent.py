@@ -348,6 +348,32 @@ def test_agent_process_snapshots_optimizer_defaults():
         chan.close()
 
 
+def test_a_torch_backed_daemon_matches_the_in_process_drive(tmp_path, monkeypatch):
+    """A daemon spawned with the optimizer defaults ``{"backend": "torch",
+    "device": "cpu"}`` drives the multi-instance twin's four ``bo_torch``
+    sessions (batched asks in its mux) to the bests of an in-process
+    drive of the same sessions.  Both sides run their thread pools on one
+    thread (the child through the environment it inherits)."""
+    from torch_threads import one_thread
+
+    from repro_torch.bench import multi_instance
+    from repro_torch.core.optimizers import optimizer_defaults, set_optimizer_defaults
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("OPENBLAS_NUM_THREADS", "1")
+    old = optimizer_defaults()
+    set_optimizer_defaults(backend="torch")
+    try:
+        with one_thread():
+            res = multi_instance.run(budget=9, optimizer="bo_torch", device="cpu",
+                                     out_dir=tmp_path)
+    finally:
+        set_optimizer_defaults(**old)
+    assert optimizer_defaults() == old
+    for name, row in res["instances"].items():
+        assert row["identical"] and row["evaluations"] == 9, (name, row)
+
+
 @pytest.mark.slow
 def test_agent_tunes_the_train_loop_lr_scale():
     """Figure 1 on the CPU: a spawned agent runs a ``torch_train_loop``

@@ -183,6 +183,29 @@ def test_a_bound_step_never_moves_to_other_buffers(registry):
     assert len(g.bound) == 2 and other.args[0].shape == (5,)
 
 
+def _doubler(out, x):
+    out.add_(2 * x)
+
+
+def test_variants_of_one_key_are_programs_of_their_own(fake_capture):
+    """Two programs that one key and one shape class cannot tell apart (a
+    constant of the program differs) bind apart by ``variant``, on other
+    buffers or on the same ones, each capturing its own graph; the counts
+    stay per key."""
+    g = Graphs(capture=True)
+    out, x = torch.zeros(3), torch.ones(3)
+    add = g.bind("t.op", _adder, out, x, variant="add")
+    double = g.bind("t.op", _doubler, out, x, variant="double")     # the same buffers
+    assert add is not double and g.bind("t.op", _adder, out, x, variant="add") is add
+    with pytest.raises(ValueError, match="other buffers"):
+        g.bind("t.op", _doubler, torch.zeros(3), x, variant="double")
+    add()
+    double()
+    assert g.captures == {"t.op": 2}
+    assert add.graph is not double.graph
+    assert step_counts()["t.op"] == {"runs": 2, "captures": 2, "replays": 0}
+
+
 def test_graph_step_warms_up_captures_once_then_replays(fake_capture):
     g = Graphs(capture=True)
     out, x = torch.zeros(3), torch.ones(3)

@@ -138,6 +138,17 @@ def test_the_train_slice_is_covered():
             "repro_torch.core.telemetry", "repro_torch.bench.fault_tolerance"} <= set(_modules())
 
 
+def test_the_gp_engine_slice_is_covered():
+    """The torch GP engine and the three benchmark twins it runs in are
+    among what the checks here walk."""
+    assert {"repro_torch.core.optimizers.engine", "repro_torch.bench.optimizer_throughput",
+            "repro_torch.bench.campaign_sweep", "repro_torch.bench.multi_instance"} <= set(
+        _modules())
+    for rel in ("core/optimizers/engine.py", "bench/optimizer_throughput.py",
+                "bench/campaign_sweep.py", "bench/multi_instance.py"):
+        assert PORT / rel in SOURCES
+
+
 def test_the_spawned_agent_imports_no_torch():
     """The agent daemon's process (spawned) imports the module of its target
     and what that pulls in: none of it is torch (no CUDA in the side-car),
@@ -213,6 +224,18 @@ def test_entry_points_default_to_cuda():
     for argv_main in (kernel_autotune.main, configstore_roundtrip.main, fault_tolerance.main):
         src = inspect.getsource(argv_main)
         assert 'ap.add_argument("--device", default="cuda"' in src
+    # the GP engine and the twins that run it
+    from repro_torch.bench import campaign_sweep, multi_instance, optimizer_throughput
+    from repro_torch.core.optimizers import BayesOpt, optimizer_defaults
+    from repro_torch.core.optimizers.engine import TorchGP
+
+    for fn in (TorchGP.__init__, BayesOpt.__init__, optimizer_throughput.run,
+               optimizer_throughput.bench, campaign_sweep.run, campaign_sweep.bench,
+               multi_instance.run, multi_instance.bench):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    assert optimizer_defaults()["device"] == "cuda"
+    for argv_main in (optimizer_throughput.main, campaign_sweep.main):
+        assert 'ap.add_argument("--device", default="cuda"' in inspect.getsource(argv_main)
 
 
 # ------------------------------------------------------------ chip_smoke.py
@@ -497,3 +520,35 @@ def test_chip_smoke_agent_path_on_cpu(chip_smoke):
     out = chip_smoke.agent_main_path("cpu", get_config("olmo-1b").reduced(), batch=2, seq=32)
     assert len(out["applied"]) == 5 and out["report"]["evaluations"] == 4
     assert len(out["history"]) == 10 and out["launches"]["flash_attention"] == 0
+
+
+def test_chip_smoke_optimizer_path_on_cpu(chip_smoke, tmp_path, monkeypatch):
+    """The optimizer phase's helpers at quick size on the CPU: the
+    throughput twin, parity of the engine (here CPU against CPU) with the
+    numpy backend, the batched ask, the sweep with both backends, and the
+    ``kernels`` grid with ``optimizer.backend=torch`` (every cell done and
+    promoted, the defaults restored).  The grid's kernel timings are
+    replaced by a planted cost of the settings: on a shared CPU a timed
+    best can read slower than the default on re-measurement, and the gate
+    then rightly refuses it.  The daemon's half is
+    ``tests/test_torch_channel_agent.py::test_a_torch_backed_daemon_matches_the_in_process_drive``."""
+    from torch_threads import one_thread
+
+    from repro_torch.core.optimizers import optimizer_defaults
+    from repro_torch.launch import campaign as tlaunch
+
+    monkeypatch.setattr(tlaunch, "_time_us", lambda cell, fn, args, settings, reps: {
+        "time_us": float(sum(len(str(v)) for v in settings.values()))})
+    before = optimizer_defaults()
+    with one_thread():
+        out = chip_smoke.optimizer_main_path("cpu", quick=True)
+        sweep = chip_smoke.optimizer_sweep_path("cpu", quick=True, out_dir=tmp_path)
+        grid = chip_smoke.optimizer_grid_path("cpu", budget=4, quick=True)
+    assert out["parity_asks"] == len(chip_smoke.OPT_PARITY_SEEDS) * chip_smoke.OPT_PARITY_ASKS
+    assert out["variants"] == {"asks": 6, "max_abs_err": 0.0}   # 2 kernels x 3 acquisitions
+    assert out["theta"]["rel"] == 0.0                 # the same device twice
+    assert out["steps"]["gp.suggest"]["runs"] > 0 and out["steps"]["gp.suggest"]["captures"] == 0
+    assert set(sweep) == {"numpy", "torch"}
+    assert len(grid["results"]) == 6 and all(r.promoted for r in grid["results"].values())
+    assert grid["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}   # CPU: no kernel
+    assert optimizer_defaults() == before

@@ -676,3 +676,50 @@ def test_a_graph_server_frees_its_graphs_and_buffers(cuda):
     gc.collect()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() <= base
+
+
+# ------------------------------------------------------------ the GP engine
+def _engine_history(seed: int, n: int, device, fit_hypers: bool):
+    from repro_torch.bench.optimizer_throughput import with_history
+    return with_history("torch", seed, n, device, fit_hypers=fit_hypers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_the_gp_engine_on_the_card_suggests_the_cpus_configs(cuda, seed):
+    """float64 on the card: three asks at fixed hypers equal the same
+    engine's on the CPU; suggest and append run as replays of programs
+    captured once per shape class, the factor as a program shared by the
+    engines of its class."""
+    from repro_torch.bench.optimizer_throughput import objective
+    from repro_torch.core.optimizers import engine as te
+
+    a = _engine_history(seed, 25, cuda, fit_hypers=False)
+    b = _engine_history(seed, 25, "cpu", fit_hypers=False)
+    for _ in range(3):
+        ca, cb = a.ask(), b.ask()
+        assert ca == cb
+        a.tell(ca, objective(ca))
+        b.tell(cb, objective(cb))
+    a.ask()
+    graphs = a._engine.graphs
+    assert graphs.captures == {"gp.append": 1, "gp.suggest": 1}
+    assert graphs.replays["gp.suggest"] == 3 and graphs.replays["gp.append"] == 2
+    factor = [step for (key, variant, _), step in te._SHARED_GRAPHS[a._engine.device].bound.items()
+              if key == "gp.full_chol" and variant == ("matern32", 6, 32)]
+    assert len(factor) == 1 and factor[0].graph is not None
+
+
+@pytest.mark.cuda
+def test_the_gp_engine_fit_and_batched_ask_on_the_card(cuda):
+    """The fitted θ on the card within 1e-8 of the CPU's, and the batched ask
+    of 8 sessions equal to 8 sequential asks."""
+    from repro_torch.core.optimizers.engine import batched_ask
+
+    on_card, on_cpu = (_engine_history(1, 40, dev, fit_hypers=True) for dev in (cuda, "cpu"))
+    on_card.ask()
+    on_cpu.ask()
+    np.testing.assert_allclose(on_card._engine.theta, on_cpu._engine.theta, rtol=1e-8)
+    seq = [_engine_history(7 + s, 25, cuda, fit_hypers=True) for s in range(8)]
+    bat = [_engine_history(7 + s, 25, cuda, fit_hypers=True) for s in range(8)]
+    assert [o.ask() for o in seq] == batched_ask(bat)
