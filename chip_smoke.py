@@ -21,7 +21,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                      bf16 and float32: flash attention (every prefill
                      shape the serving phases give it: OLMo-1B's and
                      hymba-1.5b's widths, OLMo-1B's 4-row gang prefills,
-                     reduced OLMo-1B's GQA 4->2 at head dim 16; GQA,
+                     reduced OLMo-1B's GQA 4->2 at head dim 16;
+                     Mixtral-8x22B's and reduced Mixtral's windowed GQA
+                     prefills, checked a block of 2048 query rows at a
+                     time where wider; GQA,
                      window, q_offset, non-pow2; the campaign grid's four shapes
                      at every tile pair compiled for the dtype; the
                      libraries' shared-memory tables against the
@@ -188,10 +191,51 @@ Phases, in order; any failure exits non-zero before the result lines:
                      ``bo_torch`` sessions, whose bests must equal an
                      in-process drive of the same sessions.
 
+ 20. serve-moe     — full-width, full-depth OLMoE-1B-7B (16 layers, d 2048,
+                     64 experts, top-8, QK-norm; 6.92 B params, bf16)
+                     served as in the serve phase (capacity 2048, max_batch
+                     8, 16 requests at widths 2…1024, CUDA graphs):
+                     tokens/s, p50/p99, launches (prefill executions +
+                     captures) x 16; the one-at-a-time streams are printed
+                     beside the continuous ones, not gated (expert capacity
+                     couples the rows of a batch).
+ 21. serve-moe-window — Mixtral-8x22B at full width (d 6144, GQA 48->8, 8
+                     experts, top-2, ff 16384, window 4096) cut to 4 of 56
+                     layers, capacity 16384 (the server keeps capacity // 2
+                     prompt tokens: a prompt of 4097…8192 tokens prefills at
+                     width 8192, past the window, and its ring buffer
+                     wraps), max_batch 8, prompts at widths 2, 64, 1024 and
+                     8192.
+ 22. graphs-moe   — both MoE models with ``step="eager"`` and ``"graph"``:
+                     identical streams required; decode step ms by events,
+                     host wall, busy ms, idle share and the graphed step's
+                     costliest kernels (printed for every graphs phase).
+ 23. model-moe    — reduced OLMoE-1B-7B and Mixtral-8x22B in float32: card
+                     (kernel path) vs CPU (plain path) logits as in the
+                     model phase, then served on the card eagerly and on
+                     graphs: identical streams required.
+ 24. moe-dispatch — ``apply_moe`` of OLMoE's first layer at its decode (T 8),
+                     prefill (T 1024) and train (T 8192) token counts, per
+                     strategy (gather, local_tp, dense, auto): ms by events
+                     and device-held, beside the bound of the work; the
+                     ``dropped_frac`` at capacity factors 1.0, 1.25 and 2.0;
+                     the capacity path against the dense oracle where
+                     nothing drops; the costliest kernels of ``gather`` and
+                     ``dense``.
+ 25. train-moe    — full-width OLMoE-1B-7B cut to 2 layers, batch 4 x seq
+                     2048, 3 steps from the seed's state, twice: finite
+                     losses, every loss, gradient norm and state leaf the
+                     same bits in both runs; ms by events, tokens/s, MFU
+                     reading (active parameters), peak memory; then reduced
+                     OLMoE-1B-7B trained by ``run_training`` with a
+                     checkpoint and a second run that resumes at the saved
+                     step.
+
 Phases 11-13 run after the campaign phase, before the profiles; phases
-14-19 after the profiles, once the serving phases' servers, weights and
-graph pools are released.  The script sets ``CUBLAS_WORKSPACE_CONFIG``
-before its first product.  Each phase
+20-25 after the profiles, once the serving phases' servers, weights and
+graph pools are released (one MoE model's weights at a time); phases
+14-19 after those, once the MoE phases' are released too.  The script
+sets ``CUBLAS_WORKSPACE_CONFIG`` before its first product.  Each phase
 from 11 on prints its wall time; after each phase the script prints the
 memory the caching allocator reserved (``torch.cuda.max_memory_reserved``)
 and the time since the start, and it prints its total before the last two
@@ -225,6 +269,12 @@ PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s
 SSD_HEADROOM = 4.0           # tests/test_kernels.py: the scan's chunk hand-offs
 SSD_STATE_TOL = 1e-3         # float32 final state, absolute and relative
 SEED = 17
+# serve-moe-window: Mixtral-8x22B's prompt widths, capacity and cut depth.
+# The server keeps capacity // 2 prompt tokens, so capacity 16384 lets a
+# prompt past the 4096-token window prefill at width 8192.
+MOE_WINDOW_WIDTHS = [2, 64, 1024, 8192]
+MOE_WINDOW_CAPACITY = 16384
+MOE_WINDOW_LAYERS = 4
 # (batch, seq_q, seq_k, heads, kv_heads, head_dim, window, q_offset)
 ATTN_CASES = [
     # OLMo-1B prefill shapes: every pow2 prompt width the server can give
@@ -235,6 +285,11 @@ ATTN_CASES = [
     *((4, w, w, 16, 16, 128, 0, 0) for w in (2, 4, 8, 16, 32, 64)),
     # reduced OLMo-1B prefills (serving grid, f32 parity phases): GQA 4->2, head_dim 16
     *((1, w, w, 4, 2, 16, 0, 0) for w in (2, 4, 8, 16, 32)),
+    # (OLMoE-1B-7B's prefills are OLMo-1B's shapes: H16 K16 D128, QK-normed q and k)
+    # Mixtral-8x22B prefills (serve-moe-window): GQA 48->8, window 4096
+    *((1, w, w, 48, 8, 128, 4096, 0) for w in MOE_WINDOW_WIDTHS),
+    # reduced Mixtral-8x22B prefills (model-moe): GQA 4->2, head_dim 16, window 16
+    *((1, w, w, 4, 2, 16, 16, 0) for w in (2, 4, 8, 16, 32)),
     (2, 256, 256, 32, 8, 128, 0, 0),      # GQA
     (1, 300, 300, 16, 16, 128, 48, 0),    # sliding window
     (1, 100, 228, 8, 8, 64, 0, 128),      # q_offset > 0 (chunked prefill)
@@ -282,7 +337,7 @@ def _kernels():
 def _expected_launches(cfg, prefills: int) -> dict:
     """One launch per layer per prefill of each kernel the family runs (the
     models normalize inline: RMSNorm's kernel is on the tuning path only)."""
-    uses = {"flash_attention": cfg.family in ("dense", "hybrid"),
+    uses = {"flash_attention": cfg.family in ("dense", "moe", "hybrid"),
             "ssd": cfg.family in ("ssm", "hybrid"), "rmsnorm": False}
     return {k: prefills * cfg.n_layers if used else 0 for k, used in uses.items()}
 
@@ -427,6 +482,15 @@ def _qkv(case, dtype, device, seed):
     return mk(b, sq, h, d), mk(b, sk, kh, d), mk(b, sk, kh, d)
 
 
+def _plain_attention(ref, q, k, v, window: int, q_offset: int, rows: int = 2048):
+    """``naive_attention``, a block of ``rows`` query rows at a time (a row's
+    output depends on its own scores only): at once, the float32 scores of
+    an 8192-token prefill at 48 heads would take 13 GB."""
+    outs = [ref.naive_attention(q[:, r0:r0 + rows], k, v, causal=True, window=window,
+                                q_offset=q_offset + r0) for r0 in range(0, q.shape[1], rows)]
+    return torch.cat(outs, dim=1)
+
+
 def phase_kernels(device) -> dict:
     """Kernel vs plain on the card: the edge and serve shapes at the default
     tiles, the campaign grid's shapes at every tile pair compiled for the
@@ -455,7 +519,7 @@ def phase_kernels(device) -> dict:
             window, q_offset = case[6], case[7]
             got = kernel.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset,
                                          block_q=bq, block_kv=bk)
-            want = ref.naive_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+            want = _plain_attention(ref, q, k, v, window, q_offset)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
             tol = TOL[dtype]
@@ -736,17 +800,24 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
 
 
 def phase_serve(device, card: str, name: str = "olmo-1b", n_requests: int = 16,
-                widths: Optional[list] = None, label: str = "serve") -> dict:
+                widths: Optional[list] = None, label: str = "serve", capacity: int = 2048,
+                max_width: int = 1024, n_layers: Optional[int] = None) -> dict:
+    """Serve the full-width model ``name`` (its depth cut to ``n_layers``
+    where given) on the card; see :func:`serve_main_path`."""
     from repro_torch.configs import get_config
 
     cfg = get_config(name)
-    out = serve_main_path(device, cfg, capacity=2048, max_batch=8, n_requests=n_requests,
-                          max_width=1024, widths=widths)
-    out["widths_asked"] = widths
+    depth = f"{cfg.n_layers} layers"
+    if n_layers is not None:
+        depth = f"depth cut to {n_layers} of {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers).validate()
+    out = serve_main_path(device, cfg, capacity=capacity, max_batch=8, n_requests=n_requests,
+                          max_width=max_width, widths=widths)
+    out.update(widths_asked=widths, capacity=capacity, max_width=max_width)
     m = out["metrics"]
     launched = ", ".join(f"{n} {k} launches" for k, n in out["launches"].items() if n)
-    print(f"{label}: {name} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.param_count() / 1e9:.3f} B params, bf16) on {card}")
+    print(f"{label}: {name} full width ({depth}, d {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} B params, bf16), capacity {capacity} on {card}")
     print(f"{label}: {int(m['completed'])} requests, widths {sorted(set(out['widths']))}, "
           f"{int(m['total_tokens'])} tokens, {int(m['decode_steps'])} decode steps, "
           f"{out['host_fetches']} host fetches, step={out['step']}: {out['prefill_calls']} "
@@ -760,7 +831,10 @@ def phase_serve(device, card: str, name: str = "olmo-1b", n_requests: int = 16,
     for d in out["divergences"]:
         print(f"{label}: divergence rid {d['rid']} at step {d['step']}: "
               f"top-2 logit gap at batch 1 {d['top2_gap']:.4g}")
-    if out["divergences"]:
+    if out["divergences"] and cfg.is_moe:
+        print(f"{label}: (reported, not a gate: expert capacity couples the rows of a batch, so "
+              "a MoE stream at batch 8 and one at batch 1 need not agree)")
+    elif out["divergences"]:
         print(f"{label}: (reported, not a gate: in bf16 a decode step at batch 8 and one at "
               "batch 1 round differently; the f32 serve in the model phase must agree)")
     out["cfg"] = cfg
@@ -788,8 +862,8 @@ def decode_step_timing(srv, steps: int = GRAPH_DECODE_STEPS) -> dict:
     done, so the state it advances is never read): CUDA events around them
     (device ms a step, host gaps included where the host is slower), the
     host's wall a step (enqueue to the end of the last step), and the
-    device's busy time a step and idle share under torch.profiler (device
-    activity only)."""
+    device's busy time a step, idle share and four most costly kernels
+    under torch.profiler (device activity only)."""
     def run():
         srv._hist_row.zero_()                   # the history takes at most 64 steps
         for _ in range(steps):
@@ -807,34 +881,36 @@ def decode_step_timing(srv, steps: int = GRAPH_DECODE_STEPS) -> dict:
     out = {"events_ms": start.elapsed_time(end) / steps, "host_ms": 1e3 * wall / steps}
     found = _device_profile(lambda: (run(), torch.cuda.synchronize()), host=False)
     if found is not None:
-        busy, window, n_ops, _ = found
+        busy, window, n_ops, by_name = found
         out.update(busy_ms=busy / 1e3 / steps, idle_share=1 - busy / window,
-                   ops_per_step=n_ops / steps)
+                   ops_per_step=n_ops / steps,
+                   top=sorted(((us / 1e3 / steps, name) for name, us in by_name.items()),
+                              reverse=True)[:4])
     return out
 
 
-def phase_graphs(device, card: str, serves: dict) -> dict:
-    """Each full-width model (the serve phases' weights and smoke mix, bf16,
-    capacity 2048, max_batch 8) served with ``step="eager"`` and with
+def phase_graphs(device, card: str, serves: dict, label: str = "graphs") -> dict:
+    """Each full-width model (the serve phases' weights, smoke mix and
+    capacity, bf16, max_batch 8) served with ``step="eager"`` and with
     ``step="graph"``: the same step bodies on the same static buffers,
     without and with capture.  Fails unless every request's token stream is
     identical between the two and the launch counts are exact on both.
     Prints, per path, tokens/s and p50/p99 of the run (a graph server
-    captures during it), the decode step's device and host time, and the
-    registry's counters."""
+    captures during it), the decode step's device and host time, the
+    registry's counters, and the graphed step's costliest kernels."""
     out = {}
     for name, serve in serves.items():
         cfg = serve["cfg"]
         runs = {}
         for step in ("eager", "graph"):
-            r = serve_main_path(device, cfg, capacity=2048, max_batch=8,
-                                n_requests=len(serve["arrivals"]), max_width=1024,
-                                widths=serve["widths_asked"], step=step,
-                                params=serve["params"], divergences=False)
+            r = serve_main_path(device, cfg, capacity=serve["capacity"], max_batch=8,
+                                n_requests=len(serve["arrivals"]),
+                                max_width=serve["max_width"], widths=serve["widths_asked"],
+                                step=step, params=serve["params"], divergences=False)
             r["decode"] = decode_step_timing(r.pop("server"))
             runs[step] = r
             m, d = r["metrics"], r["decode"]
-            print(f"graphs: {name} step={step}: tokens_per_s {m['tokens_per_s']:.2f}, "
+            print(f"{label}: {name} step={step}: tokens_per_s {m['tokens_per_s']:.2f}, "
                   f"p50_latency_s {m['p50_latency_s']:.4f}, p99_latency_s "
                   f"{m['p99_latency_s']:.4f}; decode step at batch 8: {d['events_ms']:.3f} ms "
                   f"by events, host wall {d['host_ms']:.3f} ms, device busy "
@@ -843,16 +919,19 @@ def phase_graphs(device, card: str, serves: dict) -> dict:
                   f"{d.get('ops_per_step', float('nan')):.0f} device ops a step); "
                   f"{r['prefill_calls']} prefills + {r['captures']} captures, launches "
                   f"{r['launches']}; registry {_registry_line(r['registry'])} ({card})")
+            if step == "graph":
+                for ms, kname in d.get("top", []):
+                    print(f"{label}: {name} step=graph: {ms:.3f} ms a step  {kname[:90]}")
         eager, graph = runs["eager"]["streams"], runs["graph"]["streams"]
         differ = [rid for rid in eager if eager[rid] != graph[rid]]
         for rid in differ:
             t = next(i for i, (x, y) in enumerate(zip(eager[rid], graph[rid])) if x != y)
-            print(f"graphs: {name}: request {rid} differs at step {t}: eager "
+            print(f"{label}: {name}: request {rid} differs at step {t}: eager "
                   f"{eager[rid][t:t + 4]}, graph {graph[rid][t:t + 4]}")
         if differ:
             raise AssertionError(f"{name}: {len(differ)} of {len(eager)} token streams differ "
                                  "between the eager and the graph path")
-        print(f"graphs: {name}: eager and graph streams identical for {len(eager)} of "
+        print(f"{label}: {name}: eager and graph streams identical for {len(eager)} of "
               f"{len(eager)} requests; decode step {runs['eager']['decode']['events_ms']:.3f} -> "
               f"{runs['graph']['decode']['events_ms']:.3f} ms by events")
         out[name] = {step: {k: v for k, v in r.items() if k in ("metrics", "decode", "launches",
@@ -872,11 +951,31 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def _model_moe_streams(device, cfg, name: str) -> None:
+    """A reduced MoE config served on the card eagerly and on graphs: the
+    streams must be identical (one-at-a-time decoding is not the contract:
+    expert capacity couples the rows of a batch)."""
+    runs = {step: serve_main_path(device, cfg, capacity=64, max_batch=4, n_requests=8,
+                                  max_width=32, long_max=16, step=step, divergences=False)
+            for step in ("eager", "graph")}
+    eager, graph = runs["eager"]["streams"], runs["graph"]["streams"]
+    if eager != graph:
+        differ = [rid for rid in eager if eager[rid] != graph[rid]]
+        raise AssertionError(f"reduced {name}: streams {differ} differ between the eager and "
+                             "the graph path")
+    g = runs["graph"]
+    launched = ", ".join(f"{n} {k}" for k, n in g["launches"].items() if n)
+    print(f"model: reduced {name} f32 served on the card: eager and graph streams identical "
+          f"for {len(eager)} of {len(eager)} requests; graph path {g['prefill_calls']} prefills "
+          f"+ {g['captures']} captures, kernel launches {launched}")
+
+
 def phase_model(device, name: str) -> float:
     """A reduced config in float32: card (kernel path) vs CPU (plain path),
-    prefill at widths 24 (non-pow2: ragged kernel tiles and chunks) and 2
-    (shorter than the SSM's conv history) + 3 decode steps; then served on
-    the card."""
+    prefill at widths 24 (non-pow2: ragged kernel tiles and chunks; past
+    a reduced window of 16) and 2 (shorter than the SSM's conv history) + 3
+    decode steps; then served on the card (a MoE config: eager against
+    graph streams)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
@@ -908,6 +1007,9 @@ def phase_model(device, name: str) -> float:
     print(f"model: reduced {name} f32 prefill (S=24, S=2) + 3 decode steps, card vs CPU: "
           f"max abs logit err {worst:.3g} (tol 1e-4)")
 
+    if cfg.is_moe:
+        _model_moe_streams(device, cfg, name)
+        return worst
     # In f32 the continuous server must reproduce the one-at-a-time streams
     # on the card too; only an argmax near-tie (top-2 gap under the 1e-4
     # logit tolerance above) may differ.
@@ -1759,12 +1861,12 @@ class _StepTimer:
 
 def train_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one train step (the MFU reading's numerator): 6·N per
-    token for the parameters' products (forward and backward, no recompute)
-    plus causal attention's 12·S·H·D per token and layer, halved by the
-    mask."""
-    attn_layers = cfg.n_layers if cfg.family in ("dense", "hybrid") else 0
+    token for the parameters' products (forward and backward, no recompute;
+    N the active parameters: a MoE token runs top-k of its experts) plus
+    causal attention's 12·S·H·D per token and layer, halved by the mask."""
+    attn_layers = cfg.n_layers if cfg.family in ("dense", "moe", "hybrid") else 0
     tokens = batch * seq
-    return (6.0 * cfg.param_count() * tokens
+    return (6.0 * cfg.active_param_count() * tokens
             + 12.0 * attn_layers * tokens * seq * cfg.n_heads * cfg.hd / 2)
 
 
@@ -1903,6 +2005,214 @@ def phase_train_profile(device, card: str, name: str = "olmo-1b", batch: int = 8
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"train-profile:   {us / busy:.3f} of busy, {us / 1e3:8.1f} ms  {kname[:100]}")
     return {"ms": ms, "busy_ms": busy / 1e3, "window_ms": window / 1e3, "ops": n_ops}
+
+
+# ---------------------------------------------------------------------- MoE
+# moe-dispatch: OLMoE-1B-7B's token counts (B, S) at decode, prefill and train
+MOE_DISPATCH_SHAPES = {"decode": (8, 1), "prefill": (1, 1024), "train": (4, 2048)}
+MOE_CAPACITY_FACTORS = (1.0, 1.25, 2.0)
+
+
+def moe_bound_ms(tokens: int, d: int, f: int, n_experts: int, touched: int, assignments: int,
+                 elem_bytes: int, peak_flops: float) -> tuple:
+    """Least time for a MoE layer's work on this run's routing: x read once
+    and y written once, the router and the ``touched`` experts' three
+    weights read once, against the router's product and 6·d·f FLOPs per
+    (token, expert) assignment that the layer computes."""
+    bytes_moved = elem_bytes * (2 * tokens * d + d * n_experts + 3 * touched * d * f)
+    flops = 2.0 * tokens * d * n_experts + 6.0 * assignments * d * f
+    t_bytes, t_flops = bytes_moved / PEAK_BYTES, flops / peak_flops
+    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def moe_dispatch_path(device, cfg, *, shapes=None, seed: int = SEED, timed: bool = True) -> dict:
+    """``apply_moe`` of one layer of ``cfg`` (random weights from ``seed``,
+    unit-normal inputs) at each of ``shapes``: every strategy's output
+    finite and of x's shape, the capacity path equal to the dense oracle
+    within the dtype's tolerance at a capacity where nothing drops
+    (cf = E/k), the ``dropped_frac`` at ``MOE_CAPACITY_FACTORS``; on the
+    card each strategy's ms by events and device-held, beside the bound."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import dtype_of, init_leaf
+
+    device = torch.device(device)
+    dtype = dtype_of(cfg)
+    e, k, d, f = cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model, cfg.moe_d_ff
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = {name: init_leaf(gen, p, p.with_dtype(dtype), device)
+              for name, p in moe.moe_params(cfg).items()}
+    rows = {}
+    for label, (b, s) in (shapes or MOE_DISPATCH_SHAPES).items():
+        x = torch.randn((b, s, d), generator=gen, device=device).to(dtype)
+        t = b * s
+        dropped = {cf: float(moe.dropped_frac(params, x, cfg, capacity_factor=cf))
+                   for cf in MOE_CAPACITY_FACTORS}
+        with torch.no_grad():
+            _, ids, _ = moe._route(params, x.reshape(t, d), cfg)
+            want, _ = moe.apply_moe(params, x, cfg, strategy="dense")
+            free, _ = moe.apply_moe(params, x, cfg, strategy="gather", capacity_factor=e / k)
+        if float(moe.dropped_frac(params, x, cfg, capacity_factor=e / k)) != 0.0:
+            raise AssertionError(f"{label}: assignments dropped at capacity factor E/k")
+        tol = TOL[dtype]
+        err = (free.float() - want.float()).abs()
+        if (err > tol + tol * want.float().abs()).any():
+            raise AssertionError(f"{label}: the capacity path without drops disagrees with the "
+                                 f"dense oracle by {err.max().item():.3g} (tol {tol:.3g})")
+        row = {"tokens": t, "dropped_frac": dropped, "oracle_max_abs_err": err.max().item(),
+               "strategies": {}}
+        cf = moe.moe_settings.settings_for(moe.workload_signature(t, e, k))["capacity_factor"]
+        for strategy in moe.STRATEGIES:
+            with torch.no_grad():
+                y, aux = moe.apply_moe(params, x, cfg, strategy=strategy)
+            if y.shape != x.shape or not torch.isfinite(y).all() or not torch.isfinite(aux):
+                raise AssertionError(f"{label} {strategy}: y {tuple(y.shape)}, finite "
+                                     f"{bool(torch.isfinite(y).all())}, aux {float(aux)}")
+            if strategy == "dense":
+                plan_ids = ids.reshape(-1)
+            else:
+                cap = moe.capacity(t, e, k, cf)
+                flat, keep, _ = moe.dispatch_plan(ids, e, cap)
+                plan_ids = flat[keep]                 # a host read: measurement only
+            touched = int(torch.unique(plan_ids).numel())
+            bound, by = moe_bound_ms(t, d, f, e, touched, int(plan_ids.numel()),
+                                     dtype.itemsize, PEAK_BF16_FLOPS)
+            r = {"bound_ms": bound, "bound_by": by, "experts_touched": touched,
+                 "assignments": int(plan_ids.numel())}
+            if timed and device.type == "cuda":
+                with torch.no_grad():
+                    r["ms"], r["ms_device"] = _both_ms(
+                        lambda xx, st=strategy: moe.apply_moe(params, xx, cfg, strategy=st), x)
+                    if strategy in ("gather", "dense"):
+                        by_name = _kernels_us(lambda st=strategy: moe.apply_moe(
+                            params, x, cfg, strategy=st), reps=5)
+                        r["top_kernels"] = sorted(((us, n) for n, (us, _) in by_name.items()),
+                                                  reverse=True)[:3]
+            row["strategies"][strategy] = r
+        rows[label] = row
+    return rows
+
+
+def phase_moe_dispatch(device, card: str) -> dict:
+    """:func:`moe_dispatch_path` at full-width OLMoE-1B-7B on the card,
+    with the three costliest kernels of the gather and dense strategies."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("olmoe-1b-7b")
+    t0 = time.perf_counter()
+    rows = moe_dispatch_path(device, cfg)
+    for label, row in rows.items():
+        t = row["tokens"]
+        drops = ", ".join(f"cf {cf} {v:.4f}" for cf, v in row["dropped_frac"].items())
+        print(f"moe-dispatch: {cfg.name} {label} T {t}: dropped_frac {drops}; gather at cf E/k "
+              f"vs dense: max abs err {row['oracle_max_abs_err']:.3g} (tol {TOL[torch.bfloat16]:.3g})")
+        for strategy, r in row["strategies"].items():
+            print(f"moe-dispatch: {cfg.name} {label} T {t} {strategy}: events {r['ms']:.4f} / "
+                  f"device-held {r['ms_device']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}; {r['assignments']} assignments to {r['experts_touched']} "
+                  f"experts) ({card})")
+            for us, kname in r.get("top_kernels", []):
+                print(f"moe-dispatch:   {strategy} {us / 1e3:8.4f} ms a call  {kname[:90]}")
+    print(f"moe-dispatch: phase wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def moe_train_path(device, cfg, *, batch: int, seq: int, steps: int, seed: int = 0) -> dict:
+    """``steps`` train steps of ``cfg`` from the seed's state on seeded
+    batches, twice: every step's loss and gradient norm and every leaf of
+    the state after the last step must be the same bits in both runs (the
+    kill → resume contract rests on it), every loss finite, and each run
+    must launch every kernel of the family steps × layers × (1 + recompute)
+    times (none on the CPU)."""
+    from repro_torch.runtime.steps import init_train_state, train_step_for
+    from repro_torch.tree import leaves_with_paths
+
+    device = torch.device(device)
+    kernels = _kernels()
+    step = train_step_for(cfg)
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(steps):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))).to(device)
+        batches.append({"tokens": toks, "labels": toks.roll(-1, 1)})
+    per_step = _expected_launches(cfg, _remat_factor(cfg, batch, seq))
+    runs, first = [], None
+    for _ in range(2):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, torch.Generator(device=device).manual_seed(seed), device)
+        for fn in kernels.values():
+            fn.launches = 0
+        timer = _StepTimer(device)
+        for i, data in enumerate(batches):
+            timer.on_step(i)
+            state, m = step(state, data)
+            timer(i, {k: float(v) for k, v in m.items()})
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        expected = ({k: v * steps for k, v in per_step.items()} if device.type == "cuda"
+                    else dict.fromkeys(kernels, 0))
+        if launches != expected:
+            raise AssertionError(f"train-moe launches {launches}; expected {expected}")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                   for r in timer.rows):
+            raise AssertionError(f"a non-finite loss or gradient norm: {timer.rows}")
+        runs.append({"rows": timer.rows, "launches": launches,
+                     "peak_bytes": (torch.cuda.max_memory_allocated()
+                                    if device.type == "cuda" else 0)})
+        if first is None:
+            first = state
+            continue
+        keys = ("loss", "grad_norm")
+        if [[r[k] for k in keys] for r in runs[0]["rows"]] != \
+                [[r[k] for k in keys] for r in runs[1]["rows"]]:
+            raise AssertionError(f"two runs from one state differ: {runs[0]['rows']} against "
+                                 f"{runs[1]['rows']}")
+        differ = [path for (path, a), (_, b) in zip(leaves_with_paths(first),
+                                                    leaves_with_paths(state))
+                  if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"two runs from one state end in different bits at {differ[:5]}")
+    del first, state
+    return {"runs": runs, "launches": {k: sum(r["launches"][k] for r in runs) for k in kernels}}
+
+
+def phase_train_moe(device, card: str, batch: int = 4, seq: int = 2048, steps: int = 3,
+                    n_layers: int = 2) -> dict:
+    """Full-width OLMoE-1B-7B cut to ``n_layers`` layers: two bit-equal runs
+    of ``steps`` steps; then reduced OLMoE-1B-7B through ``run_training``
+    with a checkpoint and a resumed second run."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    full = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, n_layers=n_layers).validate()
+    print(f"train-moe: {full.name} full width, depth cut to {n_layers} of {full.n_layers} layers "
+          f"({cfg.param_count() / 1e9:.3f} B params, {cfg.active_param_count() / 1e9:.3f} B "
+          f"active, {cfg.dtype}), batch {batch} x seq {seq}, {steps} steps twice on {card}")
+    out = moe_train_path(device, cfg, batch=batch, seq=seq, steps=steps)
+    flops = train_flops(cfg, batch, seq)
+    for i, run in enumerate(out["runs"]):
+        for r in run["rows"]:
+            print(f"train-moe: run {i + 1} step {r['step']}: loss {r['loss']!r}, grad_norm "
+                  f"{r['grad_norm']!r}, {r['ms']:.1f} ms by CUDA events, "
+                  f"{batch * seq / (r['ms'] / 1e3):.0f} tokens/s, MFU reading "
+                  f"{flops / (r['ms'] / 1e3) / PEAK_BF16_FLOPS:.3f} ({card})")
+        print(f"train-moe: run {i + 1}: peak memory allocated {run['peak_bytes'] / 2**30:.2f} "
+              f"GiB, launches {run['launches']}")
+    print("train-moe: both runs gave the same bits: every loss, gradient norm and state leaf")
+    small = get_config("olmoe-1b-7b").reduced()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_moe_") as td:
+        resumed = train_main_path(device, small, batch=4, seq=64, steps=2, resume_to=3,
+                                  ckpt_every=1, ckpt_dir=td)
+    for i, run in enumerate(resumed["runs"]):
+        steps_run = [(r["step"], round(r["loss"], 6)) for r in run["rows"]]
+        print(f"train-moe: reduced {small.name} ({small.dtype}) run {i + 1}: (step, loss) "
+              f"{steps_run}, {int(run['ckpt']['saves'])} checkpoint saves")
+    print(f"train-moe: the reduced run resumed at step 2; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": {k: out["launches"][k] + resumed["launches"][k] for k in _kernels()}}
 
 
 # ----------------------------------------------------------------- train-grad
@@ -2599,6 +2909,34 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _memory("serving released", t_start)
+    # one MoE model's weights at a time: drawing a stacked leaf takes twice
+    # its float32 size for a moment (Mixtral's wi_gate at 4 layers: 26 GB)
+    moe_runs = {"serve-moe": dict(name="olmoe-1b-7b"),
+                "serve-moe-window": dict(name="mixtral-8x22b", n_requests=8,
+                                         widths=MOE_WINDOW_WIDTHS, capacity=MOE_WINDOW_CAPACITY,
+                                         max_width=max(MOE_WINDOW_WIDTHS),
+                                         n_layers=MOE_WINDOW_LAYERS)}
+    path_launches["graphs-moe"] = dict.fromkeys(_kernels(), 0)
+    for label, kw in moe_runs.items():
+        serve = phase_serve(device, card, label=label, **kw)
+        path_launches[label] = serve["launches"]
+        graphs = phase_graphs(device, card, {kw["name"]: serve}, label="graphs-moe")
+        for k, n in graphs["launches"].items():
+            path_launches["graphs-moe"][k] += n
+        del serve, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+        _memory(f"{label}, graphs-moe", t_start)
+    for name in ("olmoe-1b-7b", "mixtral-8x22b"):
+        phase_model(device, name)
+    phase_moe_dispatch(device, card)
+    _memory("model-moe, moe-dispatch", t_start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_launches["train-moe"] = phase_train_moe(device, card)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    _memory("train-moe", t_start)
     path_launches["train"] = phase_train(device, card)["launches"]
     phase_train_profile(device, card)
     _memory("train", t_start)

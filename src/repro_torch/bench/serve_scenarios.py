@@ -24,6 +24,12 @@ the device's work: the last sync's host fetch waits for it.
     PYTHONPATH=src python -m repro_torch.bench.serve_scenarios --quick --device cpu
     PYTHONPATH=src python -m repro_torch.bench.serve_scenarios \\
         --capacity 2048 --scenarios heavy_tail --repeats 5            # on the card
+    PYTHONPATH=src python -m repro_torch.bench.serve_scenarios \\
+        --model olmoe-1b-7b --capacity 2048 --scenarios heavy_tail    # the MoE family
+
+With a MoE model (``olmoe-1b-7b``, ``mixtral-8x22b``) expert capacity
+couples the rows of a decode step, so the two schedulers' streams differ;
+their token totals, which the comparison needs equal, do not.
 """
 from __future__ import annotations
 

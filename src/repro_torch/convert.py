@@ -4,7 +4,9 @@
 numpy arrays — nested dicts, block leaves stacked with the layer axis first,
 as ``repro.models.model.init_params`` builds them and ``jax.device_get``
 returns them — and returns the port's parameters (``blocks`` unstacked into
-one dict per layer).  The same weights then run through both packages, which
+one dict per layer).  The walk follows the port's spec tree, so every
+family it runs comes across the same way, a MoE layer's ``moe`` leaves
+(the router and the experts' stacked weights) included.  The same weights then run through both packages, which
 is how the parity tests hold the port against the reference: a jax.random
 stream cannot be replayed in torch.  :func:`train_state_from_reference`
 does the same for a whole train state (parameters, Adam moments and

@@ -28,6 +28,7 @@ from ..core.tunable import Categorical, Tunable, TunableSpace
 from ..kernels.flash_attention.ops import attention_settings
 from ..kernels.rmsnorm.ops import rmsnorm_settings
 from ..kernels.ssd.ops import ssd_settings
+from ..models.moe import moe_settings
 from ..models.transformer import stack_settings
 from ..runtime.serve_loop import serve_settings
 
@@ -38,6 +39,7 @@ SINGLETONS = {
     "torch_flash_attention": attention_settings,
     "torch_ssd_kernel": ssd_settings,
     "torch_rmsnorm_kernel": rmsnorm_settings,
+    "torch_moe_dispatch": moe_settings,
     "torch_layer_stack": stack_settings,
     "torch_serve_batching": serve_settings,
 }

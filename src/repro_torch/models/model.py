@@ -1,4 +1,4 @@
-"""Top-level model: param specs, init, forward and serving (dense, ssm, hybrid).
+"""Top-level model: param specs, init, forward and serving (dense, moe, ssm, hybrid).
 
 The port of ``repro/models/model.py``.  Parameters are plain tensors in
 nested dicts: ``embed``, ``ln_f``, ``out`` (unless tied) and ``blocks``, a
@@ -8,8 +8,9 @@ trees of the two packages compare leaf for leaf; :func:`init_params`
 draws that layout and unstacks it.
 
 Serving state is a list of per-layer cache dicts: ``{"k", "v"}`` of shape
-(B, C, K, hd) for attention, ``{"ssm": {"conv", "ssd"}}`` for an SSM mixer,
-all three for a hybrid layer.  :func:`decode_step` updates every leaf in
+(B, C, K, hd) for attention (a dense or MoE layer; a ring buffer of the
+window's length where ``cfg.window``), ``{"ssm": {"conv", "ssd"}}`` for an
+SSM mixer, all three for a hybrid layer.  :func:`decode_step` updates every leaf in
 place (K/V rows and each SSM state), so a captured decode step can hold the
 state; :func:`merge_slot` writes one slot in place, and :func:`install_slot`
 writes slots named by a device tensor together with their ``(tok, pos,
@@ -18,7 +19,8 @@ done)``.
 Training: :func:`loss_fn` is the next-token cross-entropy over sequence
 chunks of ``torch_layer_stack.loss_chunk`` (:func:`_chunked_ce`), so the
 (B, S, V) logits are never materialized when the sequence is longer than
-a chunk; each chunk body is recomputed in the backward pass.  The
+a chunk; each chunk body is recomputed in the backward pass; a MoE model
+adds ``MOE_AUX_WEIGHT`` times the balance loss summed over its layers.  The
 embedding lookup is ``F.embedding``, whose gradient on the card sorts the
 token ids and sums each id's rows in a fixed order (no float atomics), so
 a train step gives the same bits every time it runs on the same inputs.
@@ -41,8 +43,10 @@ from .transformer import (FAMILIES, block_specs, decode_stack, forward_stack, pr
 __all__ = [
     "param_specs", "init_params", "unstack_blocks", "forward", "logits_fn", "loss_fn",
     "cache_specs", "init_cache", "cache_batch_axes", "merge_slot", "install_slot", "prefill",
-    "decode_step",
+    "decode_step", "MOE_AUX_WEIGHT",
 ]
+
+MOE_AUX_WEIGHT = 0.01
 
 
 # --------------------------------------------------------------------- specs
@@ -87,10 +91,12 @@ def _embed(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, params["embed"])
 
 
-def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) → final hidden states (B, S, d), normalized."""
-    h = forward_stack(params["blocks"], _embed(params, tokens), cfg)
-    return apply_norm(params["ln_f"], h, cfg)
+def forward(params: Dict[str, Any], cfg: ModelConfig,
+            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) → (final hidden states (B, S, d), normalized; the MoE
+    aux loss summed over the layers, a 0-d f32 tensor: 0 but for MoE)."""
+    h, aux = forward_stack(params["blocks"], _embed(params, tokens), cfg)
+    return apply_norm(params["ln_f"], h, cfg), aux
 
 
 def _out_weight(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
@@ -147,17 +153,19 @@ def _chunked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Dict[str, Any], cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens (B, S) and labels (B, S) integer tensors (label -1 =
-    pad).  Returns (loss, {"ce", "aux"}); ``aux`` is the MoE balance loss,
-    zero for the families the port runs."""
-    h = forward(params, cfg, batch["tokens"])
+    pad).  Returns (loss, {"ce", "aux"}): loss = ce + ``MOE_AUX_WEIGHT``·aux
+    for a MoE model, ce otherwise; ``aux`` is the MoE balance loss summed
+    over the layers (zero for the other families)."""
+    h, aux = forward(params, cfg, batch["tokens"])
     ce = _chunked_ce(h, _out_weight(params, cfg), batch["labels"], cfg)
-    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
+    loss = ce + MOE_AUX_WEIGHT * aux if cfg.is_moe else ce
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ------------------------------------------------------------------- serving
 def _layer_cache_spec(cfg: ModelConfig, batch: int, context: int) -> Dict[str, Any]:
     layer: Dict[str, Any] = {}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "moe", "hybrid"):
         layer.update(attn_cache_spec(cfg, batch, context))
     if cfg.family in ("ssm", "hybrid"):
         layer["ssm"] = ssm_state_spec(cfg, batch)
@@ -245,8 +253,10 @@ def decode_step(params: Dict[str, Any], cfg: ModelConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
     """One decode step: consumes ``token`` (B,) at position ``pos`` (an int,
     or a (B,) tensor of per-slot positions) and returns (next-token logits
-    (B, V), caches).  Rows are independent: each follows its own position.
-    ``caches`` is updated in place and returned."""
+    (B, V), caches).  Each row follows its own position.  Rows are
+    independent for every family except MoE, where expert capacity couples
+    tokens across the batch (as in the reference).  ``caches`` is updated
+    in place and returned."""
     h, caches = decode_stack(params["blocks"], _embed(params, token[:, None]), caches, pos, cfg)
     h = apply_norm(params["ln_f"], h, cfg)
     return logits_fn(params, cfg, h)[:, 0], caches

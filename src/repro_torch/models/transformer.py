@@ -1,15 +1,16 @@
-"""Transformer stacks: dense, SSM (Mamba-2) and hybrid (Hymba) blocks.
+"""Transformer stacks: dense, MoE, SSM (Mamba-2) and hybrid (Hymba) blocks.
 
-The port of ``repro/models/transformer.py`` for three families:
+The port of ``repro/models/transformer.py`` for four families:
 
   dense   norm→attn→res, norm→mlp→res
+  moe     norm→attn→res, norm→moe→res (+aux loss summed over the layers)
   ssm     norm→mamba2→res
   hybrid  norm→(attn ∥ ssm: averaged)→res, norm→mlp→res   (Hymba)
 
 The reference scans stacked parameters so its HLO stays O(1) in depth;
 PyTorch runs eagerly, so the port holds one parameter dict per layer and
-loops over them.  The other block kinds (MoE, encoder-decoder, VLM) come
-with their families.
+loops over them.  The other block kinds (encoder-decoder, VLM) come with
+their families.
 
 ``stack_settings`` is the ``torch_layer_stack`` component, resolved per
 :func:`stack_workload` as in the reference.  ``remat`` is the activation
@@ -20,8 +21,8 @@ checkpoint applied to each layer of :func:`forward_stack` under autograd
   * ``full`` — keep each layer's input only, recompute the layer in the
     backward pass (the reference's ``jax.checkpoint``);
   * ``dots`` — a selective checkpoint that keeps the outputs of the
-    matrix products (``aten.mm``, ``bmm``, ``addmm``) and recomputes the
-    rest (``jax.checkpoint_policies.checkpoint_dots``).
+    matrix products (``aten.mm``, ``bmm``, ``addmm``: the MoE's expert
+    products are ``bmm``) and recomputes the rest (``jax.checkpoint_policies.checkpoint_dots``).
 
 Under ``full`` and ``dots`` the recompute runs the layer's Python again,
 so each attention or SSD kernel launches twice per layer and step (once
@@ -32,7 +33,7 @@ meaning and is kept for the tunable space.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils import checkpoint as _ckpt
@@ -43,12 +44,13 @@ from ..core.tunable import Categorical, Int
 from .attention import apply_attn, apply_attn_decode, attn_params
 from .config import ModelConfig
 from .layers import P, apply_mlp, apply_norm, mlp_params, norm_params
+from .moe import apply_moe, moe_params
 from .ssm import apply_ssm, apply_ssm_decode, ssm_params
 
 __all__ = ["FAMILIES", "stack_settings", "stack_workload", "block_specs", "stack_specs",
            "remat_wrap", "forward_stack", "prefill_stack", "decode_stack"]
 
-FAMILIES = ("dense", "ssm", "hybrid")   # the model families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid")   # the model families the port runs
 
 
 @tunable_component(
@@ -84,6 +86,9 @@ def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if kind == "dense":
         return {"ln1": norm_params(cfg), "attn": attn_params(cfg),
                 "ln2": norm_params(cfg), "mlp": mlp_params(cfg)}
+    if kind == "moe":
+        return {"ln1": norm_params(cfg), "attn": attn_params(cfg),
+                "ln2": norm_params(cfg), "moe": moe_params(cfg)}
     if kind == "ssm":
         return {"ln1": norm_params(cfg), "ssm": ssm_params(cfg)}
     if kind == "hybrid":
@@ -115,18 +120,19 @@ def _pad_kv(k: torch.Tensor, cfg: ModelConfig, cap: int) -> torch.Tensor:
     return torch.cat([k, pad], dim=1)  # slots [0, sl) filled; pos continues at sl
 
 
-def _block(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
-           keep_state: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One full-sequence block.  Returns (x, the layer's decode state): K/V
-    of every position for attention, the conv history and SSD state for an
-    SSM mixer; an empty state without ``keep_state``."""
+def _block(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, keep_state: bool = True
+           ) -> Tuple[torch.Tensor, Dict[str, Any], Optional[torch.Tensor]]:
+    """One full-sequence block.  Returns (x, the layer's decode state, the
+    MoE aux loss or None): K/V of every position for attention, the conv
+    history and SSD state for an SSM mixer; an empty state without
+    ``keep_state``."""
     state: Dict[str, Any] = {}
     xn = apply_norm(lp["ln1"], x, cfg)
     if cfg.family == "ssm":
         y, ssm_state = apply_ssm(lp["ssm"], xn, cfg, return_state=keep_state)
         if keep_state:
             state["ssm"] = ssm_state
-        return x + y, state
+        return x + y, state, None
     h, kv = apply_attn(lp["attn"], xn, cfg, causal=True)
     if keep_state:
         state["k"], state["v"] = kv
@@ -136,12 +142,18 @@ def _block(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
             state["ssm"] = ssm_state
         h = (h + s) / 2.0
     x = x + h
-    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg), state
+    if cfg.family == "moe":
+        y, aux = apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg), cfg)
+        return x + y, state, aux
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg), state, None
 
 
-def _layer(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """One block of the train/forward pass: no decode state is kept."""
-    return _block(lp, x, cfg, keep_state=False)[0]
+def _layer(lp: Dict[str, Any], x: torch.Tensor,
+           cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block of the train/forward pass: (x, MoE aux or None); no decode
+    state is kept."""
+    x, _, aux = _block(lp, x, cfg, keep_state=False)
+    return x, aux
 
 
 def _save_dots(ctx: Any, op: Any, *args: Any, **kwargs: Any) -> Any:
@@ -163,17 +175,23 @@ def remat_wrap(fn: Callable, policy: str) -> Callable:
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
-def forward_stack(layers: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence pass over the layer stack.  Under autograd each layer
-    runs under the resolved ``remat`` policy; without it, as it is."""
+def forward_stack(layers: List[Dict[str, Any]], x: torch.Tensor,
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence pass over the layer stack.  Returns (x, the MoE aux
+    loss summed over the layers: 0 for the other families).  Under
+    autograd each layer runs under the resolved ``remat`` policy; without
+    it, as it is."""
     layer = _layer
     if torch.is_grad_enabled():
         s = stack_settings.settings_for(stack_workload(cfg.family, x.shape[0], x.shape[1],
                                                        cfg.n_layers))
         layer = remat_wrap(_layer, s["remat"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
-        x = layer(lp, x, cfg)
-    return x
+        x, a = layer(lp, x, cfg)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def prefill_stack(layers: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfig,
@@ -184,7 +202,7 @@ def prefill_stack(layers: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfi
     cap = cfg.cache_len(cache_capacity)
     caches = []
     for lp in layers:
-        x, cache = _block(lp, x, cfg)
+        x, cache, _ = _block(lp, x, cfg)
         if "k" in cache:
             cache["k"], cache["v"] = _pad_kv(cache["k"], cfg, cap), _pad_kv(cache["v"], cfg, cap)
         caches.append(cache)
@@ -208,5 +226,9 @@ def decode_stack(layers: List[Dict[str, Any]], x: torch.Tensor,
             s, _ = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
             h = (h + s) / 2.0
         x = x + h
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+        if kind == "moe":
+            y, _ = apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg), cfg)
+            x = x + y
+        else:
+            x = x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
     return x, caches

@@ -1,8 +1,12 @@
 """Serving loop: slot-level continuous batching with amortized host sync.
 
 The port of ``repro/runtime/serve_loop.py``.  It serves every family whose
-caches :mod:`repro_torch.models.model` builds (dense, ssm, hybrid): the
-scheduler sees a cache only through ``init_cache`` and ``merge_slot``.  Two
+caches :mod:`repro_torch.models.model` builds (dense, moe, ssm, hybrid):
+the scheduler sees a cache only through ``init_cache`` and ``merge_slot``.
+For MoE, expert capacity couples the rows of a step (every slot routes,
+live or not, as in the reference), so a stream depends on its batch and
+continuous batching is not a pure reordering of one-at-a-time decoding;
+the contract is the reference server's streams for the same requests.  Two
 schedulers over one model:
 
   * ``mode="continuous"`` (default) — each of the ``max_batch`` slots

@@ -98,8 +98,11 @@ def make_train_step(cfg: ModelConfig, hyper: Optional[TrainHyper] = None, *,
 
     ``batch`` = {"tokens": (B, S), "labels": (B, S)} integer tensors on the
     state's device.  ``metrics`` are 0-d tensors: loss, lr, grad_norm, ce
-    and aux.  With ``microbatches`` > 1 the batch is split along B and the
-    gradients are summed in float32 and averaged, as in the reference."""
+    and aux (the MoE balance loss, summed over the layers).  With
+    ``microbatches`` > 1 the batch is split along B and the gradients are
+    summed in float32 and averaged, as in the reference, which then
+    reports ce = the mean loss and aux = 0; a MoE layer's capacity is then
+    computed per microbatch."""
     hyper = hyper or TrainHyper()
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor],

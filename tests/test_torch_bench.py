@@ -101,6 +101,21 @@ def test_serve_scenarios_quick_heavy_tail_passes_its_check(tmp_path, cost_clock)
     assert written["heavy_tail_verdict"]["verdict"] == "improved"
 
 
+def test_serve_scenarios_serves_the_moe_model(tmp_path, cost_clock):
+    """``--model olmoe-1b-7b`` from the command line (reduced, float32 on
+    the CPU): both schedulers serve the heavy tail's token totals, filed
+    under the MoE workload, and the check passes."""
+    rc = serve_scenarios.main(["--quick", "--device", "cpu", "--model", "olmoe-1b-7b",
+                               "--scenarios", "heavy_tail", "--repeats", "2",
+                               "--out-dir", str(tmp_path)])
+    check.check_serve_scenarios(expect_quick=True, bench_dir=tmp_path)
+    written = json.loads((tmp_path / "serve_scenarios.json").read_text())
+    assert rc == 0 and written["model"] == "olmoe-1b-7b" and written["workload"] == "moe_c128"
+    assert written["n_layers"] == 2 and written["device"] == "cpu"
+    row = written["scenarios"]["heavy_tail"]
+    assert row["gang"]["total_tokens"] == row["continuous"]["total_tokens"] > 0
+
+
 def _reduced_registry(monkeypatch):
     monkeypatch.setitem(runner.REGISTRY, "serve_scenarios", lambda quick, seed, **kw:
                         serve_scenarios.bench(quick, seed, scenarios=["heavy_tail"],

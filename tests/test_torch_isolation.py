@@ -14,6 +14,7 @@ import pkgutil
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -147,6 +148,26 @@ def test_the_gp_engine_slice_is_covered():
     for rel in ("core/optimizers/engine.py", "bench/optimizer_throughput.py",
                 "bench/campaign_sweep.py", "bench/multi_instance.py"):
         assert PORT / rel in SOURCES
+
+
+def test_the_moe_slice_is_covered():
+    """The MoE layer and the model, step, tuning and benchmark modules that
+    run it are among what the checks here walk; its component is tunable
+    from the launch CLIs."""
+    from repro_torch.launch import tuning
+    from repro_torch.models import moe, transformer
+
+    assert {"repro_torch.models.moe", "repro_torch.models.transformer",
+            "repro_torch.models.model", "repro_torch.runtime.steps",
+            "repro_torch.launch.tuning", "repro_torch.bench.serve_scenarios"} <= set(_modules())
+    assert PORT / "models" / "moe.py" in SOURCES
+    assert "moe" in transformer.FAMILIES
+    assert tuning.SINGLETONS["torch_moe_dispatch"] is moe.moe_settings
+    # no value read back to the host in the layer (tests/test_torch_moe.py runs it on fakes)
+    tree = ast.parse((PORT / "models" / "moe.py").read_text())
+    called = {node.attr for node in ast.walk(tree) if isinstance(node, ast.Attribute)}
+    assert not called & {"item", "tolist", "nonzero", "bincount", "one_hot",
+                         "repeat_interleave", "unique", "masked_select"}
 
 
 def test_the_spawned_agent_imports_no_torch():
@@ -552,3 +573,87 @@ def test_chip_smoke_optimizer_path_on_cpu(chip_smoke, tmp_path, monkeypatch):
     assert len(grid["results"]) == 6 and all(r.promoted for r in grid["results"].values())
     assert grid["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}   # CPU: no kernel
     assert optimizer_defaults() == before
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "mixtral-8x22b"])
+def test_chip_smoke_moe_serve_paths_on_cpu(chip_smoke, name):
+    """The serve-moe and serve-moe-window phases' function at reduced size
+    on the CPU, and the launches the MoE family expects on the card: one
+    flash attention a layer per prefill."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name).reduced()
+    out = chip_smoke.serve_main_path("cpu", cfg, capacity=64, max_batch=4, n_requests=8,
+                                     max_width=32, long_max=16)
+    assert out["metrics"]["completed"] == 8 and out["prefill_calls"] == 8
+    assert out["host_fetches"] == out["metrics"]["decode_syncs"] > 0
+    assert out["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}
+    assert chip_smoke._expected_launches(cfg, 8) == {
+        "flash_attention": 8 * cfg.n_layers, "ssd": 0, "rmsnorm": 0}
+
+
+def test_chip_smoke_checks_every_moe_prefill_shape(chip_smoke):
+    """The kernels phase holds flash attention against its plain version at
+    every prefill shape of the MoE phases: OLMoE-1B-7B's are OLMo-1B's
+    (H16 K16 D128, every pow2 width to 1024), Mixtral-8x22B's at every
+    width the serve-moe-window phase asks for, and reduced Mixtral's; the
+    phase's capacity lets its widest prompt prefill past the window."""
+    from repro_torch.configs import get_config
+
+    olmoe, mixtral = get_config("olmoe-1b-7b"), get_config("mixtral-8x22b")
+    checked = set(chip_smoke.ATTN_CASES)
+    for w in (2 ** k for k in range(1, 11)):
+        assert (1, w, w, olmoe.n_heads, olmoe.n_kv_heads, olmoe.hd, 0, 0) in checked
+        assert (1, w, w, 4, 2, 16, 0, 0) in checked or w > 32
+    for w in chip_smoke.MOE_WINDOW_WIDTHS:
+        assert (1, w, w, mixtral.n_heads, mixtral.n_kv_heads, mixtral.hd, mixtral.window,
+                0) in checked
+    small = mixtral.reduced()
+    for w in (2, 4, 8, 16, 32):
+        assert (1, w, w, small.n_heads, small.n_kv_heads, small.hd, small.window, 0) in checked
+    from repro_torch.runtime.serve_loop import BatchedServer
+
+    widest = max(chip_smoke.MOE_WINDOW_WIDTHS)
+    assert widest > mixtral.window
+    server = types.SimpleNamespace(capacity=chip_smoke.MOE_WINDOW_CAPACITY)
+    assert BatchedServer._width_of(server, widest) == widest
+
+
+def test_chip_smoke_moe_dispatch_and_train_paths_on_cpu(chip_smoke, tmp_path):
+    """The moe-dispatch and train-moe phases' functions at reduced size on
+    the CPU: every strategy's row with its bound, drops only at the lower
+    capacity factors, the capacity path against the dense oracle; two train
+    runs of the same bits; the reduced checkpoint run resumes."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("olmoe-1b-7b").reduced()
+    rows = chip_smoke.moe_dispatch_path("cpu", cfg, shapes={"decode": (8, 1),
+                                                            "prefill": (1, 64)})
+    for row in rows.values():
+        assert set(row["strategies"]) == {"auto", "local_tp", "gather", "dense"}
+        d = row["dropped_frac"]
+        assert d[1.0] >= d[1.25] >= d[2.0] >= 0.0
+        assert all(r["bound_ms"] > 0 and "ms" not in r for r in row["strategies"].values())
+    assert rows["prefill"]["strategies"]["dense"]["assignments"] == 64 * cfg.moe_top_k
+    out = chip_smoke.moe_train_path("cpu", cfg, batch=2, seq=16, steps=2)
+    assert [r["step"] for r in out["runs"][1]["rows"]] == [0, 1]
+    assert out["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}
+    resumed = chip_smoke.train_main_path("cpu", cfg, batch=4, seq=64, steps=2, resume_to=3,
+                                         ckpt_every=1, ckpt_dir=tmp_path)
+    assert [[r["step"] for r in run["rows"]] for run in resumed["runs"]] == [[0, 1], [2]]
+    full = get_config("olmoe-1b-7b")
+    want = 6.0 * full.active_param_count() * 4 * 2048 + 12.0 * 16 * 4 * 2048 * 2048 * 16 * 128 / 2
+    assert chip_smoke.train_flops(full, 4, 2048) == pytest.approx(want)
+
+
+def test_chip_smoke_moe_bound_counts_touched_experts(chip_smoke):
+    """OLMoE's decode step at T 8: all 64 experts touched, 64 assignments;
+    reading the experts' weights (805 MB) bounds it at ~0.24 ms a layer."""
+    ms, by = chip_smoke.moe_bound_ms(8, 2048, 1024, 64, 64, 64, 2, chip_smoke.PEAK_BF16_FLOPS)
+    moved = 2 * (2 * 8 * 2048 + 2048 * 64 + 3 * 64 * 2048 * 1024)
+    assert moved == pytest.approx(805e6, rel=0.01)
+    assert ms == pytest.approx(1e3 * moved / chip_smoke.PEAK_BYTES) and by == "bytes"
+    ms, by = chip_smoke.moe_bound_ms(8192, 2048, 1024, 64, 64, 8192 * 8, 2,
+                                     chip_smoke.PEAK_BF16_FLOPS)
+    assert by == "operations" and ms == pytest.approx(
+        1e3 * (2.0 * 8192 * 2048 * 64 + 6.0 * 8192 * 8 * 2048 * 1024) / chip_smoke.PEAK_BF16_FLOPS)

@@ -12,6 +12,11 @@ runs on a machine that has only the port's dependencies:
 
     python -m pytest -q -m cuda tests/test_torch_kernel_card.py
 
+The MoE family (OLMoE-1B-7B, Mixtral-8x22B) has no kernel of its own: its
+tests here hold its prefill shapes on the attention kernel, its decode
+step captured as a CUDA graph against the eager step, bit for bit, and two
+runs of its train step against each other, bit for bit.
+
 Inputs are drawn with numpy from ``zlib.crc32`` seeds.  Tolerances (absolute
 and relative) are tests/test_kernels.py's ``_grid_tol``: bfloat16 5·2⁻⁸,
 float32 170·eps (summation order inside the reductions; both the plain version and the tensor-core kernel round the
@@ -21,6 +26,8 @@ N^-1/2, so C·B has unit variance as after the model's projections: at
 N = 128 and unit B, C the terms of y reach ~10², and any two f32 summation
 orders then differ by more than the f32 tolerance where y cancels to ~0.
 """
+import dataclasses
+import os
 import zlib
 
 import numpy as np
@@ -493,7 +500,7 @@ def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
 # (repro_torch.core.compilecache, repro_torch.runtime.serve_loop): the same
 # kernels run in the same order on the same buffers, so outputs and token
 # streams are identical, not merely close.
-GRAPH_MODELS = ["olmo-1b", "mamba2-780m", "hymba-1.5b"]
+GRAPH_MODELS = ["olmo-1b", "mamba2-780m", "hymba-1.5b", "olmoe-1b-7b", "mixtral-8x22b"]
 
 
 def _reduced(name, dtype, device, seed=5):
@@ -542,7 +549,7 @@ def test_graph_server_serves_the_eager_streams_and_counts_exactly(cuda, name, dt
     eager, want, eager_launches = _serve_on(params, cfg, cuda, "eager", mode, prompts, **settings)
     graph, got, graph_launches = _serve_on(params, cfg, cuda, "graph", mode, prompts, **settings)
     assert got == want
-    uses = {"flash_attention": cfg.family in ("dense", "hybrid"),
+    uses = {"flash_attention": cfg.family in ("dense", "moe", "hybrid"),
             "ssd": cfg.family in ("ssm", "hybrid"), "rmsnorm": False}
     captures = graph.graphs.captures["serve.prefill"]
     assert captures == len(graph._admit_steps) and graph.prefill_calls == eager.prefill_calls
@@ -723,3 +730,109 @@ def test_the_gp_engine_fit_and_batched_ask_on_the_card(cuda):
     seq = [_engine_history(7 + s, 25, cuda, fit_hypers=True) for s in range(8)]
     bat = [_engine_history(7 + s, 25, cuda, fit_hypers=True) for s in range(8)]
     assert [o.ask() for o in seq] == batched_ask(bat)
+
+
+# --------------------------------------------------------------------- MoE
+def _qk_normed(t):
+    """Unit-rms rows per head, as OLMoE's QK-norm gives the kernel."""
+    f = t.float()
+    return (f * torch.rsqrt(f.square().mean(-1, keepdim=True) + 1e-6)).to(t.dtype)
+
+
+def _plain_by_rows(q, k, v, window, rows=2048):
+    """``naive_attention`` a block of query rows at a time (the float32
+    scores of an 8192-token prefill at 48 heads would take 13 GB at once)."""
+    return torch.cat([ref.naive_attention(q[:, r0:r0 + rows], k, v, causal=True, window=window,
+                                          q_offset=r0) for r0 in range(0, q.shape[1], rows)], 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [("olmoe-1b-7b", 1024, 16, 16, 0),
+                                  ("mixtral-8x22b", 8192, 48, 8, 4096)], ids=lambda c: c[0])
+def test_kernel_matches_plain_at_the_moe_prefill_shapes(cuda, dtype, case):
+    """OLMoE's widest prefill (S1024 H16 K16 D128, QK-normed q and k) and
+    Mixtral's past its window (S8192 H48 K8 D128, window 4096)."""
+    name, s, h, kh, window = case
+    q, k, v = _qkv(("moe", name, dtype), 1, s, s, h, kh, 128, dtype, cuda)
+    if name == "olmoe-1b-7b":
+        q, k = _qk_normed(q), _qk_normed(k)
+    got = kernel.flash_attention(q, k, v, causal=True, window=window)
+    _close(got, _plain_by_rows(q, k, v, window), dtype)
+
+
+def _moe_config(name, layers):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, n_layers=layers) if layers else cfg.reduced()
+    return dataclasses.replace(cfg, dtype="bfloat16").validate()
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,layers", [("olmoe-1b-7b", 2), ("mixtral-8x22b", None)])
+def test_moe_decode_step_on_a_graph_equals_eager_bit_for_bit(cuda, name, layers):
+    """A decode step of 8 slots at their own positions, bf16: OLMoE at full
+    width (2 of its layers) and reduced Mixtral (its 16-slot ring wraps),
+    captured as a CUDA graph and replayed, against the same step run
+    eagerly on a copy of the same state: the same logits and caches, bit
+    for bit (routing, capacity and combine read nothing back to the host)."""
+    from repro_torch.models import model as M
+
+    cfg = _moe_config(name, layers)
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    rng = np.random.default_rng(zlib.crc32(repr(("moe-graph", name)).encode()))
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (8, 32))).to(cuda)
+    _, caches, _ = M.prefill(params, cfg, toks, 64)
+    tok = torch.from_numpy(rng.integers(2, cfg.vocab_size, (8,))).to(cuda)
+    pos = torch.tensor([32, 5, 17, 32, 1, 9, 40, 30], device=cuda)
+    eager, graph = _clone(caches), _clone(caches)
+    want, _ = M.decode_step(params, cfg, tok, eager, pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm-up: rewrites the same K/V rows
+        M.decode_step(params, cfg, tok, graph, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got, _ = M.decode_step(params, cfg, tok, graph, pos)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for a, b in zip(graph, eager):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+
+
+@pytest.mark.cuda
+def test_a_moe_train_step_gives_the_same_bits_twice(cuda):
+    """One train step of full-width OLMoE-1B-7B cut to one layer (batch 2 x
+    512), twice from the same seeded state: the same metrics and the same
+    parameters and moments, bit for bit (the capacity dispatch's gradients
+    add with no float atomics)."""
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.tree import leaves_with_paths
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = _moe_config("olmoe-1b-7b", 1)
+    rng = np.random.default_rng(zlib.crc32(b"moe-train"))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512))).to(cuda)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    step = make_train_step(cfg)
+    runs = []
+    for _ in range(2):
+        state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        state, metrics = step(state, batch)
+        runs.append((state, {k: float(v) for k, v in metrics.items()}))
+        torch.cuda.synchronize()
+    (a, ma), (b, mb) = runs
+    assert ma == mb and ma["aux"] > 0
+    for (path, x), (_, y) in zip(leaves_with_paths(a), leaves_with_paths(b)):
+        assert torch.equal(x, y), path

@@ -83,7 +83,7 @@ def test_forward_and_logits_match_reference(pair):
     name, jcfg, tcfg, jp, tp = pair
     toks = _tokens(("fwd", name), 2, 24, tcfg.vocab_size)
     jh, _ = JM.forward(jp, jcfg, toks)
-    th = M.forward(tp, tcfg, torch.from_numpy(toks).long())
+    th, _ = M.forward(tp, tcfg, torch.from_numpy(toks).long())
     np.testing.assert_allclose(_np(th), _np(jh), **TOL)
     jl = JM.logits_fn(jp, jcfg, jh)
     tl = M.logits_fn(tp, tcfg, th)

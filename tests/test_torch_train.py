@@ -246,7 +246,7 @@ def test_loss_chunks_agree_and_padded_vocab_is_masked():
     for a, b in zip(g1, g2):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **GRID)
     with torch.no_grad():   # the padded columns take no probability mass
-        logits = (M.forward(params, cfg, batch["tokens"]) @ params["out"])[..., :250]
+        logits = (M.forward(params, cfg, batch["tokens"])[0] @ params["out"])[..., :250]
         nll = -torch.log_softmax(logits, -1).gather(-1, batch["labels"].clamp(min=0)[..., None])
         valid = batch["labels"] >= 0
         assert float(l1) == pytest.approx(float(nll[..., 0][valid].mean()), **SCALAR)
