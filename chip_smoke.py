@@ -24,7 +24,12 @@ Phases, in order; any failure exits non-zero before the result lines:
                      reduced OLMo-1B's GQA 4->2 at head dim 16;
                      Mixtral-8x22B's and reduced Mixtral's windowed GQA
                      prefills, checked a block of 2048 query rows at a
-                     time where wider; GQA,
+                     time where wider; seamless-m4t-medium's non-causal
+                     encoder (512 x 512), causal decoder and cross-attention
+                     over 512 frames, llama-3.2-vision-11b's causal GQA
+                     32->8 and cross-attention over 1601 modal tokens, at
+                     every prompt width, the train-encdec shapes and the
+                     reduced pair's; each case carries its causal flag; GQA,
                      window, q_offset, non-pow2; the campaign grid's four shapes
                      at every tile pair compiled for the dtype; the
                      libraries' shared-memory tables against the
@@ -107,11 +112,15 @@ Phases, in order; any failure exits non-zero before the result lines:
                      must give the one-at-a-time streams (near-ties aside).
  12. serve-bench   — ``repro_torch.bench.serve_scenarios`` at full-width
                      OLMo-1B, bf16, capacity 2048, heavy tail only: one
-                     warm-up and 5 timed replays per scheduler, records into
+                     warm-up per scheduler over every width class of the
+                     mix, then 5 timed replays per scheduler, records into
                      a temporary trajectory; medians of tokens/s, p50 and
                      p99, the continuous-vs-gang verdict (printed, not
-                     gated; equal token totals gated) and the idle share of
-                     one more continuous replay under the profiler.
+                     gated; equal token totals gated), each replay's graph
+                     captures and replays (a timed replay that captures
+                     fails the phase: its servers take over the programs
+                     the warm-ups captured) and the idle share of one more
+                     continuous replay under the profiler.
  13. serving-grid  — the ``serving`` campaign grid on the card (reduced
                      OLMo-1B, bf16, bo budget 3) into a temporary store:
                      every cell done, every entry filed under this card, a
@@ -122,7 +131,9 @@ Phases, in order; any failure exits non-zero before the result lines:
                      run_training`` on the port's synthetic corpus, batch 8 x
                      seq 2048: 6 steps with a checkpoint every 3 into a
                      temporary directory, then a second run to 8 steps that
-                     must resume at step 6.  Per step: loss, gradient norm,
+                     must resume at step 6; the resumed steps' gradient
+                     norms and losses in full beside the first run's state
+                     stepped on to 8 in memory.  Per step: loss, gradient norm,
                      ms by CUDA events, tokens/s and an MFU reading (model
                      FLOPs over the step time over the bf16 peak); per run
                      the peak memory allocated and the checkpoint's blocked
@@ -230,11 +241,42 @@ Phases, in order; any failure exits non-zero before the result lines:
                      OLMoE-1B-7B trained by ``run_training`` with a
                      checkpoint and a second run that resumes at the saved
                      step.
+ 26. serve-encdec — seamless-m4t-medium at full size (12 encoder and 12
+                     decoder layers, d 1024, H16 D64, 0.878 B params, bf16)
+                     served as in the serve phase at capacity 2048 (the
+                     stub's 512 zero frames a request: the encoder's
+                     non-causal 512 x 512 prefill, the decoder's causal
+                     self-attention and its cross-attention over 512
+                     frames), max_batch 8, CUDA graphs; launches (prefill
+                     executions + captures) x (12 + 2 x 12).  The
+                     one-at-a-time replay is not run (27 gates the streams).
+ 27. serve-vlm    — llama-3.2-vision-11b at full size (40 layers + 8 cross
+                     blocks, d 4096, GQA 32->8, 10.11 B params, bf16), the
+                     same settings, 1601 zero modal tokens a request;
+                     launches x (40 + 8).
+ 28. graphs-xattn — each of the two again eager and graphed: identical
+                     streams required; decode step ms by events, host wall,
+                     busy ms, idle share, the costliest kernels.
+ 29. model-xattn  — reduced seamless and the VLM reduced to two groups in
+                     float32 with seeded non-zero modal frames (the serve
+                     stub's zeros leave a VLM's cross-attention at 0):
+                     forward, prefill at widths 24 and 2 and 3 decode steps,
+                     card (kernel path) against CPU (plain path) within
+                     1e-4.
+ 30. train-encdec — seamless-m4t-medium at full size, batch 4 x seq 1024
+                     with 1024 seeded frames a row, 3 steps from the seed's
+                     state twice: the same bits in both runs (the encoder's
+                     and the cross-attention's gradients through the kernel
+                     Function's plain backward); ms by events, MFU reading,
+                     peak memory.
 
 Phases 11-13 run after the campaign phase, before the profiles; phases
-20-25 after the profiles, once the serving phases' servers, weights and
-graph pools are released (one MoE model's weights at a time); phases
-14-19 after those, once the MoE phases' are released too.  The script
+20-24 and 26-29 after the profiles, once the serving phases' servers,
+weights and graph pools are released (one model's weights at a time), then
+25 and 30; phases 14-19 after those, once theirs are released too.  A
+server hands its graphs and buffers over to the next server of its params
+and context (``repro_torch.core.compilecache``): every release point drops
+what is still handed over.  The script
 sets ``CUBLAS_WORKSPACE_CONFIG`` before its first product.  Each phase
 from 11 on prints its wall time; after each phase the script prints the
 memory the caching allocator reserved (``torch.cuda.max_memory_reserved``)
@@ -275,32 +317,56 @@ SEED = 17
 MOE_WINDOW_WIDTHS = [2, 64, 1024, 8192]
 MOE_WINDOW_CAPACITY = 16384
 MOE_WINDOW_LAYERS = 4
-# (batch, seq_q, seq_k, heads, kv_heads, head_dim, window, q_offset)
+# (batch, seq_q, seq_k, heads, kv_heads, head_dim, window, q_offset, causal)
+SERVE_WIDTHS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+XATTN_CAPACITY = 2048        # serve-encdec / serve-vlm: the encdec source is capacity // 4 = 512
+XATTN_MODAL = {"seamless-m4t-medium": 512, "llama-3.2-vision-11b": 1601}
+XATTN_REDUCED_MODAL = 12     # model-xattn: reduced seamless' frames (the VLM's: its own 8)
+XATTN_TRAIN = (4, 1024)      # train-encdec: batch x seq, and as many frames
 ATTN_CASES = [
     # OLMo-1B prefill shapes: every pow2 prompt width the server can give
-    *((1, w, w, 16, 16, 128, 0, 0) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
+    *((1, w, w, 16, 16, 128, 0, 0, True) for w in SERVE_WIDTHS),
     # hymba-1.5b prefill shapes: GQA 25->5, head_dim 64, window 2048 (wider than any prompt)
-    *((1, w, w, 25, 5, 64, 2048, 0) for w in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)),
+    *((1, w, w, 25, 5, 64, 2048, 0, True) for w in SERVE_WIDTHS),
     # OLMo-1B gang prefills (serve-bench): max_batch 4 rows at every pow2 heavy-tail width
-    *((4, w, w, 16, 16, 128, 0, 0) for w in (2, 4, 8, 16, 32, 64)),
+    *((4, w, w, 16, 16, 128, 0, 0, True) for w in (2, 4, 8, 16, 32, 64)),
     # reduced OLMo-1B prefills (serving grid, f32 parity phases): GQA 4->2, head_dim 16
-    *((1, w, w, 4, 2, 16, 0, 0) for w in (2, 4, 8, 16, 32)),
+    *((1, w, w, 4, 2, 16, 0, 0, True) for w in (2, 4, 8, 16, 32)),
     # (OLMoE-1B-7B's prefills are OLMo-1B's shapes: H16 K16 D128, QK-normed q and k)
     # Mixtral-8x22B prefills (serve-moe-window): GQA 48->8, window 4096
-    *((1, w, w, 48, 8, 128, 4096, 0) for w in MOE_WINDOW_WIDTHS),
+    *((1, w, w, 48, 8, 128, 4096, 0, True) for w in MOE_WINDOW_WIDTHS),
     # reduced Mixtral-8x22B prefills (model-moe): GQA 4->2, head_dim 16, window 16
-    *((1, w, w, 4, 2, 16, 16, 0) for w in (2, 4, 8, 16, 32)),
-    (2, 256, 256, 32, 8, 128, 0, 0),      # GQA
-    (1, 300, 300, 16, 16, 128, 48, 0),    # sliding window
-    (1, 100, 228, 8, 8, 64, 0, 128),      # q_offset > 0 (chunked prefill)
-    (2, 77, 77, 4, 2, 32, 0, 0),          # non-pow2, ragged tiles
-    (1, 40, 40, 4, 4, 16, 0, 0),
+    *((1, w, w, 4, 2, 16, 16, 0, True) for w in (2, 4, 8, 16, 32)),
+    # seamless-m4t-medium (serve-encdec): the encoder's non-causal 512 x 512 over the
+    # modal frames, the decoder's causal self-attention and its cross-attention over
+    # the 512 encoded frames at every prompt width; H16 K16 D64
+    (1, 512, 512, 16, 16, 64, 0, 0, False),
+    *((1, w, w, 16, 16, 64, 0, 0, True) for w in SERVE_WIDTHS),
+    *((1, w, 512, 16, 16, 64, 0, 0, False) for w in SERVE_WIDTHS),
+    # llama-3.2-vision-11b (serve-vlm): causal GQA 32->8 D128, and cross-attention
+    # over the 1601 modal tokens (no tile divides them) at every prompt width
+    *((1, w, w, 32, 8, 128, 0, 0, True) for w in SERVE_WIDTHS),
+    *((1, w, 1601, 32, 8, 128, 0, 0, False) for w in SERVE_WIDTHS),
+    # train-encdec: seamless at 4 x 1024 with 1024 frames (encoder, decoder, cross)
+    (4, 1024, 1024, 16, 16, 64, 0, 0, False),
+    (4, 1024, 1024, 16, 16, 64, 0, 0, True),
+    # reduced seamless and llama-vision (model-xattn, f32, batch 2, widths 24 and 2): GQA
+    # 4->2 D16; seamless' 12 frames through the encoder, both models' cross-attention
+    (2, XATTN_REDUCED_MODAL, XATTN_REDUCED_MODAL, 4, 2, 16, 0, 0, False),
+    *((2, w, w, 4, 2, 16, 0, 0, True) for w in (24, 2)),
+    *((2, w, m, 4, 2, 16, 0, 0, False) for w in (24, 2) for m in (XATTN_REDUCED_MODAL, 8)),
+    (2, 256, 256, 32, 8, 128, 0, 0, True),      # GQA
+    (1, 300, 300, 16, 16, 128, 48, 0, True),    # sliding window
+    (1, 100, 228, 8, 8, 64, 0, 128, True),      # q_offset > 0 (chunked prefill)
+    (2, 77, 77, 4, 2, 32, 0, 0, True),          # non-pow2, ragged tiles
+    (1, 40, 40, 4, 4, 16, 0, 0, True),
+    (2, 200, 300, 8, 4, 64, 0, 0, False),       # non-causal, Sq != Sk
 ]
 # The `kernels` campaign grid's attention shapes (OLMo-1B heads, causal):
 # every (block_q, block_kv) pair compiled for the dtype, which the grid
 # times and may promote
-ATTN_GRID_CASES = [(b, s, s, 16, 16, 128, 0, 0) for b, s in ((1, 128), (2, 256), (2, 512),
-                                                           (4, 1024))]
+ATTN_GRID_CASES = [(b, s, s, 16, 16, 128, 0, 0, True) for b, s in ((1, 128), (2, 256),
+                                                                 (2, 512), (4, 1024))]
 # (batch, seq, heads, head_dim, state, groups)
 # RMSNorm shapes (..., d): tests/test_kernels.py's spot checks and RMS_GRID,
 # then the served norm widths (mamba2-780m 1536, hymba-1.5b 1600)
@@ -334,12 +400,25 @@ def _kernels():
     return {"flash_attention": fa.flash_attention, "ssd": ssd.ssd, "rmsnorm": rms.rmsnorm}
 
 
+def attention_passes(cfg) -> int:
+    """Full-sequence attention calls of one forward pass or prefill: one a
+    layer (dense, moe, hybrid); an encoder-decoder's encoder layers plus
+    its decoder layers twice (self and cross); a VLM's layers plus one cross
+    block a group."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    if cfg.family == "vlm":
+        return cfg.n_layers + cfg.n_layers // cfg.cross_attn_period
+    return cfg.n_layers if cfg.family in ("dense", "moe", "hybrid") else 0
+
+
 def _expected_launches(cfg, prefills: int) -> dict:
-    """One launch per layer per prefill of each kernel the family runs (the
+    """Per prefill, one launch of each kernel the family runs per call site
+    (:func:`attention_passes`; one SSD scan a layer for ssm and hybrid; the
     models normalize inline: RMSNorm's kernel is on the tuning path only)."""
-    uses = {"flash_attention": cfg.family in ("dense", "moe", "hybrid"),
-            "ssd": cfg.family in ("ssm", "hybrid"), "rmsnorm": False}
-    return {k: prefills * cfg.n_layers if used else 0 for k, used in uses.items()}
+    return {"flash_attention": prefills * attention_passes(cfg),
+            "ssd": prefills * cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0,
+            "rmsnorm": 0}
 
 
 # --------------------------------------------------------------------- card
@@ -476,17 +555,18 @@ def phase_build() -> dict:
 
 # ------------------------------------------------------------------ kernels
 def _qkv(case, dtype, device, seed):
-    b, sq, sk, h, kh, d, _, _ = case
+    b, sq, sk, h, kh, d = case[:6]
     g = torch.Generator(device=device).manual_seed(seed)
     mk = lambda *shape: torch.randn(shape, generator=g, device=device).to(dtype)
     return mk(b, sq, h, d), mk(b, sk, kh, d), mk(b, sk, kh, d)
 
 
-def _plain_attention(ref, q, k, v, window: int, q_offset: int, rows: int = 2048):
+def _plain_attention(ref, q, k, v, window: int, q_offset: int, causal: bool = True,
+                     rows: int = 2048):
     """``naive_attention``, a block of ``rows`` query rows at a time (a row's
     output depends on its own scores only): at once, the float32 scores of
     an 8192-token prefill at 48 heads would take 13 GB."""
-    outs = [ref.naive_attention(q[:, r0:r0 + rows], k, v, causal=True, window=window,
+    outs = [ref.naive_attention(q[:, r0:r0 + rows], k, v, causal=causal, window=window,
                                 q_offset=q_offset + r0) for r0 in range(0, q.shape[1], rows)]
     return torch.cat(outs, dim=1)
 
@@ -516,10 +596,10 @@ def phase_kernels(device) -> dict:
         worst = 0.0
         for i, (case, bq, bk) in enumerate(cases):
             q, k, v = _qkv(case, dtype, device, seed=1000 + i)
-            window, q_offset = case[6], case[7]
-            got = kernel.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset,
-                                         block_q=bq, block_kv=bk)
-            want = _plain_attention(ref, q, k, v, window, q_offset)
+            window, q_offset, causal = case[6:]
+            got = kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                         q_offset=q_offset, block_q=bq, block_kv=bk)
+            want = _plain_attention(ref, q, k, v, window, q_offset, causal)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs()
             tol = TOL[dtype]
@@ -729,9 +809,11 @@ def _divergences(srv, params, cfg, arrivals, capacity: int, device) -> list:
 
 def _prefill_terms(srv) -> tuple:
     """(prefill executions, prefill captures) of a server: each adds one
-    launch per layer of every kernel its family runs (a capture records the
-    wrappers' launches, a replay adds them back)."""
-    return srv.prefill_calls, srv.graphs.captures.get("serve.prefill", 0)
+    launch per attention layer of every kernel its family runs (a capture
+    records the wrappers' launches, a replay adds them back).  Captures are
+    the server's own: the programs it took over from an earlier server of
+    its model and context were captured there."""
+    return srv.prefill_calls, srv.prefill_captures
 
 
 def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: int,
@@ -786,7 +868,8 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
                 else dict.fromkeys(kernels, 0))     # a CPU tensor never reaches a kernel
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} for ({prefills} prefills + {captures} "
-                             f"captures) x {cfg.n_layers} layers of {cfg.family}; "
+                             f"captures) x {attention_passes(cfg)} attention calls of "
+                             f"{cfg.family}; "
                              f"expected {expected}")
     registry = {k: v - registry0[k] for k, v in compilecache.cache_counters().items()}
 
@@ -801,33 +884,48 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
 
 def phase_serve(device, card: str, name: str = "olmo-1b", n_requests: int = 16,
                 widths: Optional[list] = None, label: str = "serve", capacity: int = 2048,
-                max_width: int = 1024, n_layers: Optional[int] = None) -> dict:
+                max_width: int = 1024, n_layers: Optional[int] = None,
+                divergences: bool = True) -> dict:
     """Serve the full-width model ``name`` (its depth cut to ``n_layers``
-    where given) on the card; see :func:`serve_main_path`."""
+    where given) on the card; see :func:`serve_main_path`.  Without
+    ``divergences`` the one-at-a-time replay is left out."""
     from repro_torch.configs import get_config
 
     cfg = get_config(name)
     depth = f"{cfg.n_layers} layers"
+    if cfg.family == "encdec":
+        depth = f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder layers"
+    elif cfg.family == "vlm":
+        depth = f"{cfg.n_layers} layers + {cfg.n_layers // cfg.cross_attn_period} cross blocks"
     if n_layers is not None:
         depth = f"depth cut to {n_layers} of {cfg.n_layers} layers"
         cfg = dataclasses.replace(cfg, n_layers=n_layers).validate()
     out = serve_main_path(device, cfg, capacity=capacity, max_batch=8, n_requests=n_requests,
-                          max_width=max_width, widths=widths)
+                          max_width=max_width, widths=widths, divergences=divergences)
     out.update(widths_asked=widths, capacity=capacity, max_width=max_width)
     m = out["metrics"]
     launched = ", ".join(f"{n} {k} launches" for k, n in out["launches"].items() if n)
+    source = ""
+    if cfg.family in ("encdec", "vlm"):
+        source = (f", {cfg.num_modal_tokens or max(2, capacity // 4)} zero modal frames a "
+                  f"request (the stub)")
     print(f"{label}: {name} full width ({depth}, d {cfg.d_model}, "
-          f"{cfg.param_count() / 1e9:.3f} B params, bf16), capacity {capacity} on {card}")
+          f"{cfg.param_count() / 1e9:.3f} B params, bf16), capacity {capacity}{source} on {card}")
     print(f"{label}: {int(m['completed'])} requests, widths {sorted(set(out['widths']))}, "
           f"{int(m['total_tokens'])} tokens, {int(m['decode_steps'])} decode steps, "
           f"{out['host_fetches']} host fetches, step={out['step']}: {out['prefill_calls']} "
           f"prefills + {out['captures']} prefill captures, {launched} (= (prefills + "
-          f"captures) x {cfg.n_layers} layers); registry {_registry_line(out['registry'])}")
+          f"captures) x {attention_passes(cfg) or cfg.n_layers} call sites); registry "
+          f"{_registry_line(out['registry'])}")
     print(f"{label}: smoke reading, one cold run: continuous tokens_per_s "
           f"{m['tokens_per_s']:.2f}, p50_latency_s {m['p50_latency_s']:.4f}, "
           f"p99_latency_s {m['p99_latency_s']:.4f} ({card})")
-    print(f"{label}: gang vs continuous identical token streams: "
-          f"{out['identical_share']:.3f} of requests")
+    if not divergences:
+        print(f"{label}: (the one-at-a-time replay is not run here: the graphs phase gates "
+              "eager against graph streams)")
+    else:
+        print(f"{label}: gang vs continuous identical token streams: "
+              f"{out['identical_share']:.3f} of requests")
     for d in out["divergences"]:
         print(f"{label}: divergence rid {d['rid']} at step {d['step']}: "
               f"top-2 logit gap at batch 1 {d['top2_gap']:.4g}")
@@ -845,6 +943,16 @@ def phase_serve(device, card: str, name: str = "olmo-1b", n_requests: int = 16,
 def _registry_line(c: dict) -> str:
     return (f"captures {int(c['captures'])}, replays {int(c['replays'])}, build "
             f"{c['build_seconds']:.2f} s, hits {int(c['hits'])}, misses {int(c['misses'])}")
+
+
+def _release() -> None:
+    """Free what the phases before held: the servers' handed-over graphs and
+    buffers (which hold their params), then the allocator's cache."""
+    from repro_torch.core import compilecache
+
+    compilecache.drop_handed_over()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _memory(label: str, t_start: float) -> None:
@@ -1682,16 +1790,21 @@ def serve_bench_path(device, *, capacity: int, repeats: int, trajectory) -> dict
                                         for r in rows):
         raise AssertionError(f"the trajectory holds {rows}")
     n = res["scenarios"]["heavy_tail"]["n_requests"]
-    replays = 1 + repeats                            # the warm-up, then the timed ones
-    prefills = replays * (n + math.ceil(n / twin.MAX_BATCH))   # continuous: one a request
+    warm = sum(w["prefills"] for w in res["warmup_graphs"].values())
+    prefills = warm + repeats * (n + math.ceil(n / twin.MAX_BATCH))   # continuous: one a request
     steps = compilecache.step_counts().get("serve.prefill", {})
     ran = steps.get("runs", 0) - steps0.get("runs", 0)
     if ran != prefills:
-        raise AssertionError(f"the registry ran serve.prefill {ran} times; {replays} replays of "
-                             f"{n} requests make {prefills} prefills")
+        raise AssertionError(f"the registry ran serve.prefill {ran} times; the warm-ups' {warm} "
+                             f"and {repeats} replays of {n} requests make {prefills} prefills")
     captures = steps.get("captures", 0) - steps0.get("captures", 0)
+    timed = {mode: res["scenarios"]["heavy_tail"][mode]["captures"] for mode in ("gang",
+                                                                            "continuous")}
+    if any(any(c) for c in timed.values()):
+        raise AssertionError(f"a timed replay captured graphs: {timed}; every program a timed "
+                             "replay runs must be captured in the warm-ups")
     return {"res": res, "rows": rows, "launches": launches, "prefills": prefills,
-            "captures": captures}
+            "captures": captures, "timed_captures": timed}
 
 
 def phase_serve_bench(device, card: str, serve: dict) -> dict:
@@ -1732,8 +1845,9 @@ def phase_serve_bench(device, card: str, serve: dict) -> dict:
           f"wall {res['wall_s']:.1f} s")
     print(f"serve-bench: {len(out['rows'])} records appended to a temporary trajectory; "
           f"launches {out['launches']} (= ({out['prefills']} prefills + {out['captures']} "
-          f"prefill captures) x {cfg.n_layers} layers; every server captures its own graphs, "
-          f"so each timed replay includes its servers' captures)")
+          f"prefill captures) x {cfg.n_layers} layers); graph captures / replays: warm-ups "
+          f"{res['warmup_graphs']}, each timed replay {out['timed_captures']} captures (gated: "
+          f"none) and {[row[m]['replays'] for m in ('gang', 'continuous')]} replays")
 
     arrivals = twin.scenario_arrivals(7, quick=False)["heavy_tail"]
     n0 = {name: fn.launches for name, fn in _kernels().items()}
@@ -1859,15 +1973,24 @@ class _StepTimer:
                           "grad_norm": metrics["grad_norm"], "lr": metrics["lr"], "ms": ms})
 
 
-def train_flops(cfg, batch: int, seq: int) -> float:
+def train_flops(cfg, batch: int, seq: int, frames: int = 0) -> float:
     """Model FLOPs of one train step (the MFU reading's numerator): 6·N per
     token for the parameters' products (forward and backward, no recompute;
-    N the active parameters: a MoE token runs top-k of its experts) plus
-    causal attention's 12·S·H·D per token and layer, halved by the mask."""
-    attn_layers = cfg.n_layers if cfg.family in ("dense", "moe", "hybrid") else 0
+    N the active parameters: a MoE token runs top-k of its experts; an
+    encoder-decoder's encoder runs on ``frames`` frames a row, counted here
+    as if they were as many as the tokens) plus attention's 12·S_k·H·D per
+    query and layer: causal self-attention's halved by the mask, an
+    encoder's over its frames, cross-attention's over the source (frames,
+    or a VLM's modal tokens)."""
     tokens = batch * seq
-    return (6.0 * cfg.active_param_count() * tokens
-            + 12.0 * attn_layers * tokens * seq * cfg.n_heads * cfg.hd / 2)
+    hd = 12.0 * cfg.n_heads * cfg.hd
+    causal = cfg.n_layers if cfg.family in ("dense", "moe", "hybrid", "encdec", "vlm") else 0
+    attn = hd * causal * tokens * seq / 2
+    if cfg.family == "encdec":
+        attn += hd * (cfg.enc_layers * batch * frames * frames + cfg.n_layers * tokens * frames)
+    if cfg.family == "vlm":
+        attn += hd * (cfg.n_layers // cfg.cross_attn_period) * tokens * cfg.num_modal_tokens
+    return 6.0 * cfg.active_param_count() * tokens + attn
 
 
 def _remat_factor(cfg, batch: int, seq: int) -> int:
@@ -1881,19 +2004,26 @@ def _remat_factor(cfg, batch: int, seq: int) -> int:
 
 
 def train_main_path(device, cfg, *, batch: int, seq: int, steps: int, resume_to: int,
-                    ckpt_every: int, ckpt_dir, ckpt_overrides=None) -> dict:
+                    ckpt_every: int, ckpt_dir, ckpt_overrides=None,
+                    continued: bool = False) -> dict:
     """``run_training`` for ``steps`` steps with a checkpoint every
     ``ckpt_every`` into ``ckpt_dir``, then again to ``resume_to`` steps,
     which must resume where the first run stopped.  The kernels' launch
     counts are zeroed before each run and read after it; each run must
     launch every kernel of the family layers × (1 + recompute) times a
-    step (none on the CPU), and every loss must be finite."""
-    from repro_torch.runtime.train_loop import run_training
+    step (none on the CPU), and every loss must be finite.  With
+    ``continued``, the first run's final state also steps on in memory to
+    ``resume_to`` (no save, no restore; the loop's batches and
+    ``lr_scale``): ``out["continued"]`` holds those steps' metrics, to set
+    beside the resumed run's."""
+    from repro_torch.data.pipeline import PackedBatcher, SyntheticCorpus
+    from repro_torch.runtime.steps import train_step_for
+    from repro_torch.runtime.train_loop import run_training, train_settings, workload_signature
 
     device = torch.device(device)
     kernels = _kernels()
     per_step = _expected_launches(cfg, _remat_factor(cfg, batch, seq))
-    runs = []
+    runs, first_state = [], None
     for n_steps in (steps, resume_to):
         timer = _StepTimer(device)
         if device.type == "cuda":
@@ -1921,13 +2051,27 @@ def train_main_path(device, cfg, *, batch: int, seq: int, steps: int, resume_to:
                      "ckpt": out["ckpt_counters"], "data": out["data_counters"],
                      "peak_bytes": (torch.cuda.max_memory_allocated()
                                     if device.type == "cuda" else 0)})
+        if continued and first_state is None:
+            first_state = out["state"]
         del out
+    rows = []
+    if continued:
+        step_fn = train_step_for(cfg)
+        data = PackedBatcher(SyntheticCorpus(cfg.vocab_size, seed=0), batch, seq)
+        scale = float(train_settings.settings_for(
+            workload_signature(batch, seq, cfg.d_model))["lr_scale"])
+        for step in range(steps, resume_to):
+            b = {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
+                 for k, v in data.batch_at(step).items()}
+            first_state, m = step_fn(first_state, b, scale)
+            rows.append({"step": step, **{k: float(v) for k, v in m.items()}})
+        del first_state
     first, second = ([r["step"] for r in run["rows"]] for run in runs)
     if first != list(range(steps)) or second != list(range(steps, resume_to)):
         raise AssertionError(f"steps {first} then {second}: the second run must resume at "
                              f"step {steps}")
     return {"runs": runs, "launches": {k: sum(r["launches"][k] for r in runs)
-                                       for k in kernels}}
+                                       for k in kernels}, "continued": rows}
 
 
 def _train_report(label: str, cfg, batch: int, seq: int, out: dict, card: str) -> None:
@@ -1954,11 +2098,13 @@ def _train_report(label: str, cfg, batch: int, seq: int, out: dict, card: str) -
 
 def phase_train(device, card: str, name: str = "olmo-1b", batch: int = 8, seq: int = 2048,
                 steps: int = 6, resume_to: int = 8, ckpt_every: int = 3,
-                label: str = "train") -> dict:
+                label: str = "train", continued: bool = False) -> dict:
     """Full-width training through ``run_training`` (random bf16 weights from
     seed 0, the port's synthetic corpus): ``steps`` steps with a checkpoint
     every ``ckpt_every`` into a temporary directory, then a second run to
-    ``resume_to`` steps that must resume at ``steps``."""
+    ``resume_to`` steps that must resume at ``steps``.  With ``continued``
+    the resumed steps' gradient norms and losses are printed in full beside
+    those of the first run continued in memory (printed, not gated)."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -1970,8 +2116,16 @@ def phase_train(device, card: str, name: str = "olmo-1b", batch: int = 8, seq: i
           f"{steps} steps then resume to {resume_to}, checkpoint every {ckpt_every} on {card}")
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{label}_") as td:
         out = train_main_path(device, cfg, batch=batch, seq=seq, steps=steps,
-                              resume_to=resume_to, ckpt_every=ckpt_every, ckpt_dir=td)
+                              resume_to=resume_to, ckpt_every=ckpt_every, ckpt_dir=td,
+                              continued=continued)
     _train_report(label, cfg, batch, seq, out, card)
+    resumed = {r["step"]: r for r in out["runs"][1]["rows"]}
+    for r in out["continued"]:
+        back = resumed[r["step"]]
+        same = (back["grad_norm"], back["loss"]) == (r["grad_norm"], r["loss"])
+        print(f"{label}: step {r['step']}: grad_norm resumed {back['grad_norm']!r}, continued "
+              f"in memory {r['grad_norm']!r}; loss {back['loss']!r} / {r['loss']!r}: "
+              f"{'the same bits' if same else 'DIFFERENT'}")
     print(f"{label}: the second run resumed at step {steps}; launches "
           f"{out['launches']} = steps x {cfg.n_layers} layers x "
           f"{_remat_factor(cfg, batch, seq)} (remat)")
@@ -2116,13 +2270,15 @@ def phase_moe_dispatch(device, card: str) -> dict:
     return rows
 
 
-def moe_train_path(device, cfg, *, batch: int, seq: int, steps: int, seed: int = 0) -> dict:
+def train_twice_path(device, cfg, *, batch: int, seq: int, steps: int, seed: int = 0,
+                     frames: int = 0, label: str = "train") -> dict:
     """``steps`` train steps of ``cfg`` from the seed's state on seeded
-    batches, twice: every step's loss and gradient norm and every leaf of
-    the state after the last step must be the same bits in both runs (the
-    kill → resume contract rests on it), every loss finite, and each run
-    must launch every kernel of the family steps × layers × (1 + recompute)
-    times (none on the CPU)."""
+    batches (with ``frames`` seeded modal frames a row for encdec and vlm),
+    twice: every step's loss and gradient norm and every leaf of the state
+    after the last step must be the same bits in both runs (the kill →
+    resume contract rests on it), every loss finite, and each run must
+    launch every kernel of the family steps × attention calls × (1 +
+    recompute) times (none on the CPU)."""
     from repro_torch.runtime.steps import init_train_state, train_step_for
     from repro_torch.tree import leaves_with_paths
 
@@ -2134,6 +2290,9 @@ def moe_train_path(device, cfg, *, batch: int, seq: int, steps: int, seed: int =
     for _ in range(steps):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))).to(device)
         batches.append({"tokens": toks, "labels": toks.roll(-1, 1)})
+        if frames:
+            batches[-1]["modal"] = torch.from_numpy(rng.standard_normal(
+                (batch, frames, cfg.d_model)).astype(np.float32)).to(device)
     per_step = _expected_launches(cfg, _remat_factor(cfg, batch, seq))
     runs, first = [], None
     for _ in range(2):
@@ -2152,7 +2311,7 @@ def moe_train_path(device, cfg, *, batch: int, seq: int, steps: int, seed: int =
         expected = ({k: v * steps for k, v in per_step.items()} if device.type == "cuda"
                     else dict.fromkeys(kernels, 0))
         if launches != expected:
-            raise AssertionError(f"train-moe launches {launches}; expected {expected}")
+            raise AssertionError(f"{label} launches {launches}; expected {expected}")
         if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                    for r in timer.rows):
             raise AssertionError(f"a non-finite loss or gradient norm: {timer.rows}")
@@ -2191,7 +2350,7 @@ def phase_train_moe(device, card: str, batch: int = 4, seq: int = 2048, steps: i
     print(f"train-moe: {full.name} full width, depth cut to {n_layers} of {full.n_layers} layers "
           f"({cfg.param_count() / 1e9:.3f} B params, {cfg.active_param_count() / 1e9:.3f} B "
           f"active, {cfg.dtype}), batch {batch} x seq {seq}, {steps} steps twice on {card}")
-    out = moe_train_path(device, cfg, batch=batch, seq=seq, steps=steps)
+    out = train_twice_path(device, cfg, batch=batch, seq=seq, steps=steps, label="train-moe")
     flops = train_flops(cfg, batch, seq)
     for i, run in enumerate(out["runs"]):
         for r in run["rows"]:
@@ -2213,6 +2372,129 @@ def phase_train_moe(device, card: str, batch: int = 4, seq: int = 2048, steps: i
     print(f"train-moe: the reduced run resumed at step 2; phase wall "
           f"{time.perf_counter() - t0:.1f} s")
     return {"launches": {k: out["launches"][k] + resumed["launches"][k] for k in _kernels()}}
+
+
+# ------------------------------------------------------- encoder-decoder, VLM
+XATTN_NAMES = {"serve-encdec": "seamless-m4t-medium", "serve-vlm": "llama-3.2-vision-11b"}
+XATTN_WEIGHT_SCALE = 0.3     # model-xattn: the reduced weights kept out of the chaotic regime
+
+
+def xattn_reduced(name: str):
+    """The reduced config model-xattn holds: seamless as ``reduced()``, the
+    VLM with two groups (4 layers, ``cross_attn_period`` 2), so its group
+    loop repeats."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name).reduced()
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    return cfg.validate()
+
+
+def model_xattn_path(device, name: str, *, widths=(24, 2), steps: int = 3) -> dict:
+    """A reduced encoder-decoder or VLM in float32 with seeded non-zero modal
+    frames (the server's stub feeds zeros, under which a VLM's cross keys
+    and values are 0): ``forward`` at width 24, ``prefill`` at each of
+    ``widths`` and ``steps`` decode steps, on ``device`` (the card: the
+    kernel path) against the CPU (the plain path).  The weights are drawn
+    on the CPU from a seed, every matrix but the embedding scaled by
+    ``XATTN_WEIGHT_SCALE`` (tests/torch_xattn.py's ``perturbed``: at the
+    reduced init the hidden states reach O(20) and float32 rounding is
+    amplified past the tolerance in either path).  Returns the worst
+    absolute errors and the kernels' launches on ``device``."""
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map_with_path
+
+    device = torch.device(device)
+    cfg = xattn_reduced(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    params = tree_map_with_path(lambda path, t: t * XATTN_WEIGHT_SCALE
+                                if t.dim() >= 2 and path != "embed" else t, params)
+    n_frames = cfg.num_modal_tokens or XATTN_REDUCED_MODAL
+    rng = np.random.default_rng(7)
+    frames = torch.from_numpy(rng.standard_normal((2, n_frames, cfg.d_model)).astype(np.float32))
+    toks = {w: torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, w))) for w in widths}
+    fed = torch.from_numpy(rng.integers(2, cfg.vocab_size, (steps, 2)))
+
+    def run(dev):
+        p, f = _to(params, dev), frames.to(dev)
+        outs = {"forward": [M.forward(p, cfg, toks[widths[0]].to(dev), f)[0]]}
+        for w in widths:
+            logits, caches, pos = M.prefill(p, cfg, toks[w].to(dev), 32, f)
+            outs[f"prefill {w}"] = [logits]
+            for tok in fed.to(dev):
+                logits, caches = M.decode_step(p, cfg, tok, caches, pos)
+                pos += 1
+                outs[f"prefill {w}"].append(logits)
+        return {k: [o.cpu() for o in v] for k, v in outs.items()}
+
+    kernels = _kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    got = run(device)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    want = run("cpu")
+    errs = {}
+    for key in got:
+        for g, w in zip(got[key], want[key]):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"reduced {name}: non-finite outputs of {key}")
+        errs[key] = max((g - w).abs().max().item() for g, w in zip(got[key], want[key]))
+    return {"errs": errs, "launches": launches, "cfg": cfg, "frames": n_frames}
+
+
+def phase_model_xattn(device, card: str) -> dict:
+    """Both reduced families in float32, card against CPU (see
+    :func:`model_xattn_path`), within the model phase's 1e-4."""
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(_kernels(), 0)
+    for name in XATTN_NAMES.values():
+        out = model_xattn_path(device, name)
+        worst = max(out["errs"].values())
+        if worst > 1e-4 or not out["launches"]["flash_attention"]:
+            raise AssertionError(f"reduced {name} on the card vs the CPU: errors {out['errs']}, "
+                                 f"launches {out['launches']}")
+        for k, n in out["launches"].items():
+            launches[k] += n
+        cfg = out["cfg"]
+        print(f"model-xattn: reduced {name} ({cfg.family}, {cfg.n_layers} layers, "
+              f"{out['frames']} seeded modal frames) f32, card (kernel path) vs CPU (plain "
+              f"path): max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in out["errs"].items())
+              + f" (tol 1e-4); flash_attention launches {out['launches']['flash_attention']} "
+              f"({card})")
+    print(f"model-xattn: phase wall {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches}
+
+
+def phase_train_encdec(device, card: str, batch: int = XATTN_TRAIN[0],
+                       seq: int = XATTN_TRAIN[1], steps: int = 3) -> dict:
+    """Full-width seamless-m4t-medium trained from the seed's state on
+    ``batch`` x ``seq`` seeded tokens and as many seeded frames, ``steps``
+    steps twice: the same bits in both runs (:func:`train_twice_path`);
+    the gradients of the encoder's non-causal and the decoder's cross
+    attention go through ``FlashAttentionFn``'s plain backward."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config("seamless-m4t-medium")
+    print(f"train-encdec: {cfg.name} full size ({cfg.enc_layers} + {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}), batch {batch} "
+          f"x seq {seq} with {seq} frames a row, {steps} steps twice on {card}")
+    out = train_twice_path(device, cfg, batch=batch, seq=seq, steps=steps, frames=seq,
+                           label="train-encdec")
+    flops = train_flops(cfg, batch, seq, frames=seq)
+    for i, run in enumerate(out["runs"]):
+        for r in run["rows"]:
+            print(f"train-encdec: run {i + 1} step {r['step']}: loss {r['loss']!r}, grad_norm "
+                  f"{r['grad_norm']!r}, {r['ms']:.1f} ms by CUDA events, "
+                  f"{batch * seq / (r['ms'] / 1e3):.0f} tokens/s, MFU reading "
+                  f"{flops / (r['ms'] / 1e3) / PEAK_BF16_FLOPS:.3f} ({card})")
+        print(f"train-encdec: run {i + 1}: peak memory allocated "
+              f"{run['peak_bytes'] / 2**30:.2f} GiB, launches {run['launches']} (= steps x "
+              f"{attention_passes(cfg)} attention calls x {_remat_factor(cfg, batch, seq)})")
+    print("train-encdec: both runs gave the same bits: every loss, gradient norm and state leaf")
+    print(f"train-encdec: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ----------------------------------------------------------------- train-grad
@@ -2906,8 +3188,7 @@ def main() -> int:
     path_launches["campaign"] = campaign["launches"]
     path_launches.update({name: out["launches"] for name, out in paths.items()})
     del serves, paths, graphs, campaign
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     _memory("serving released", t_start)
     # one MoE model's weights at a time: drawing a stacked leaf takes twice
     # its float32 size for a moment (Mixtral's wi_gate at 4 layers: 26 GB)
@@ -2924,20 +3205,35 @@ def main() -> int:
         for k, n in graphs["launches"].items():
             path_launches["graphs-moe"][k] += n
         del serve, graphs
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
         _memory(f"{label}, graphs-moe", t_start)
     for name in ("olmoe-1b-7b", "mixtral-8x22b"):
         phase_model(device, name)
     phase_moe_dispatch(device, card)
     _memory("model-moe, moe-dispatch", t_start)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
+    # the encoder-decoder and the VLM, one model's weights at a time (the
+    # VLM's stacked float32 wi is 9.4 GB for a moment)
+    path_launches["graphs-xattn"] = dict.fromkeys(_kernels(), 0)
+    for label, name in XATTN_NAMES.items():
+        serve = phase_serve(device, card, name, label=label, capacity=XATTN_CAPACITY,
+                            divergences=False)
+        path_launches[label] = serve["launches"]
+        graphs = phase_graphs(device, card, {name: serve}, label="graphs-xattn")
+        for k, n in graphs["launches"].items():
+            path_launches["graphs-xattn"][k] += n
+        del serve, graphs
+        _release()
+        _memory(f"{label}, graphs-xattn", t_start)
+    path_launches["model-xattn"] = phase_model_xattn(device, card)["launches"]
+    _memory("model-xattn", t_start)
     path_launches["train-moe"] = phase_train_moe(device, card)["launches"]
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     _memory("train-moe", t_start)
-    path_launches["train"] = phase_train(device, card)["launches"]
+    path_launches["train-encdec"] = phase_train_encdec(device, card)["launches"]
+    _release()
+    _memory("train-encdec", t_start)
+    path_launches["train"] = phase_train(device, card, continued=True)["launches"]
     phase_train_profile(device, card)
     _memory("train", t_start)
     path_launches["train-ssm"] = phase_train(device, card, "mamba2-780m", batch=4, seq=1024,

@@ -19,7 +19,12 @@ replay per mode before the timed ones (on the card the first replay pays
 cuBLAS and allocator set-up).  Scheduler settings are pinned through
 ``BatchedServer(settings=...)``, so the comparison measures the scheduler,
 not whatever the config store holds.  On the card a replay's tokens/s covers
-the device's work: the last sync's host fetch waits for it.
+the device's work: the last sync's host fetch waits for it.  Every replay
+builds its servers anew, as the reference's does; a server takes over the
+captured programs of the finished server before it (same params and
+context, :mod:`repro_torch.core.compilecache`), so the warm-ups capture
+and the timed replays replay.  Each replay's graph captures and replays
+(the registry's counters) are recorded beside its samples.
 
     PYTHONPATH=src python -m repro_torch.bench.serve_scenarios --quick --device cpu
     PYTHONPATH=src python -m repro_torch.bench.serve_scenarios \\
@@ -35,12 +40,14 @@ from __future__ import annotations
 
 import argparse
 import json
+
+import numpy as np
 import sys
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
-from ..core import stats
+from ..core import compilecache, stats
 from ..runtime import traffic
 from ..runtime.serve_loop import COMPONENT, BatchedServer, workload_signature
 from . import BENCH_ROOT, load_model
@@ -56,6 +63,22 @@ SETTINGS = dict(max_batch=MAX_BATCH, admission=4, prefill_chunk=64,
 def _server(params, cfg, mode: str, capacity: int, device) -> BatchedServer:
     return BatchedServer(params, cfg, capacity=capacity, eos_id=-1, mode=mode,
                          settings=dict(SETTINGS), device=device)
+
+
+def warm_up(params, cfg, mode: str, capacity: int, device, max_width: int) -> int:
+    """One untimed run of a ``mode`` server over ``max_batch`` prompts at
+    each pow2 width class from 2 to ``max_width``, two tokens each: every
+    prefill width of either scheduler and both decode steps run once.
+    Returns the server's prefill count."""
+    rng = np.random.default_rng(0)
+    srv = _server(params, cfg, mode, capacity, device)
+    w = 2
+    while w <= max_width:
+        for _ in range(srv.max_batch):
+            srv.submit(rng.integers(2, cfg.vocab_size, size=w).astype(np.int32), budget=2)
+        w *= 2
+    srv.run()
+    return srv.prefill_calls
 
 
 def scenario_arrivals(seed: int, quick: bool) -> Dict[str, List[traffic.Arrival]]:
@@ -87,15 +110,30 @@ def run(quick: bool = False, seed: int = 7, *, model: str = "olmo-1b",
     if unknown or not names:
         raise ValueError(f"unknown scenarios {unknown}; choose from {list(arrivals)}")
 
+    def replay(mode: str, arr, speed: float = 0.0):
+        """One replay on a new server; its metrics and graph counts."""
+        c0 = compilecache.cache_counters()
+        m = traffic.replay(_server(params, cfg, mode, capacity, device), arr, speed=speed)
+        c1 = compilecache.cache_counters()
+        return m, {k: int(c1[k] - c0[k]) for k in ("captures", "replays")}
+
     t0 = time.time()
-    for mode in ("gang", "continuous"):                     # untimed warm-up
-        traffic.replay(_server(params, cfg, mode, capacity, device), arrivals[names[0]])
+    width_of = _server(params, cfg, "gang", capacity, device)._width_of
+    max_width = max(width_of(len(a.prompt)) for n in names for a in arrivals[n])
+    warmup = {}
+    for mode in ("gang", "continuous"):
+        c0 = compilecache.cache_counters()
+        prefills = warm_up(params, cfg, mode, capacity, device, max_width)
+        c1 = compilecache.cache_counters()
+        warmup[mode] = {"prefills": prefills,
+                        **{k: int(c1[k] - c0[k]) for k in ("captures", "replays")}}
     res: Dict[str, Any] = {"quick": quick, "seed": seed, "repeats": repeats,
                            "model": cfg.name, "n_layers": cfg.n_layers,
                            "d_model": cfg.d_model, "device": str(device),
                            "capacity": capacity, "settings": dict(SETTINGS),
                            "workload": workload_signature(cfg.family, capacity),
-                           "warmup_replays": 2, "scenarios": {}, "wall_s": 0.0}
+                           "warmup_replays": 2, "warmup_graphs": warmup, "scenarios": {},
+                           "wall_s": 0.0}
     for name in names:
         arr = arrivals[name]
         # diurnal replays paced (open-loop: arrivals land on schedule);
@@ -103,15 +141,18 @@ def run(quick: bool = False, seed: int = 7, *, model: str = "olmo-1b",
         speed = 8.0 if name == "diurnal" else 0.0
         row: Dict[str, Any] = {"n_requests": len(arr), "speed": speed}
         for mode in ("gang", "continuous"):
-            tps, p50, p99, toks = [], [], [], None
+            tps, p50, p99, toks, caps, reps = [], [], [], None, [], []
             for _ in range(repeats):
-                m = traffic.replay(_server(params, cfg, mode, capacity, device), arr, speed=speed)
+                m, graphs = replay(mode, arr, speed)
                 tps.append(m["tokens_per_s"])
                 p50.append(m["p50_latency_s"])
                 p99.append(m["p99_latency_s"])
                 toks = m["total_tokens"]
+                caps.append(graphs["captures"])
+                reps.append(graphs["replays"])
             row[mode] = {"tokens_per_s": tps, "p50_latency_s": p50,
-                         "p99_latency_s": p99, "total_tokens": toks}
+                         "p99_latency_s": p99, "total_tokens": toks,
+                         "captures": caps, "replays": reps}
         # same offered work on both sides, or the throughput A/B is bogus
         if row["gang"]["total_tokens"] != row["continuous"]["total_tokens"]:
             raise AssertionError(f"{name}: gang served {row['gang']['total_tokens']} tokens, "
@@ -130,7 +171,10 @@ def run(quick: bool = False, seed: int = 7, *, model: str = "olmo-1b",
         print(f"  {name:11s} gang {stats.median(g['tokens_per_s']):8.1f} tok/s "
               f"p99 {stats.median(g['p99_latency_s']):.3f}s │ continuous "
               f"{stats.median(c['tokens_per_s']):8.1f} tok/s "
-              f"p99 {stats.median(c['p99_latency_s']):.3f}s")
+              f"p99 {stats.median(c['p99_latency_s']):.3f}s │ graph captures / replays per "
+              f"timed replay: gang {g['captures']} / {g['replays']}, continuous "
+              f"{c['captures']} / {c['replays']}")
+    print(f"  warm-up graph captures / replays: {warmup}")
     if "heavy_tail_verdict" in res:
         v = res["heavy_tail_verdict"]
         print(f"  heavy_tail continuous-vs-gang verdict: {v['verdict']} "

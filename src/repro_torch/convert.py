@@ -3,10 +3,12 @@
 :func:`params_from_reference` takes the JAX package's parameter tree as
 numpy arrays — nested dicts, block leaves stacked with the layer axis first,
 as ``repro.models.model.init_params`` builds them and ``jax.device_get``
-returns them — and returns the port's parameters (``blocks`` unstacked into
-one dict per layer).  The walk follows the port's spec tree, so every
-family it runs comes across the same way, a MoE layer's ``moe`` leaves
-(the router and the experts' stacked weights) included.  The same weights then run through both packages, which
+returns them — and returns the port's parameters (the stacks unstacked
+into one dict per layer: ``blocks``, an encoder-decoder's ``enc``, a VLM's
+``xblocks`` by group and its ``blocks`` by group and layer, from their two
+stacked axes).  The walk follows the port's spec tree, so every family it
+runs comes across the same way, a MoE layer's ``moe`` leaves (the router
+and the experts' stacked weights) included.  The same weights then run through both packages, which
 is how the parity tests hold the port against the reference: a jax.random
 stream cannot be replayed in torch.  :func:`train_state_from_reference`
 does the same for a whole train state (parameters, Adam moments and
@@ -59,7 +61,7 @@ def params_from_reference(tree: Dict[str, Any], cfg: ModelConfig,
     leaf shapes differ from :func:`param_specs` of ``cfg``."""
     out = _convert(param_specs(cfg), tree, "", torch.device(device),
                    torch_dtype(dtype) if dtype is not None else None)
-    return unstack_blocks(out, cfg.n_layers)
+    return unstack_blocks(out, cfg)
 
 
 def train_state_from_reference(state: Dict[str, Any], cfg: ModelConfig,

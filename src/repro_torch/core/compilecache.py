@@ -13,18 +13,27 @@ captured once per input-shape class and replayed.  Three pieces:
     the computation, closure contents included.  Calling a
     :class:`CachedStep` runs its body eagerly; the autotune candidates of
     :mod:`repro_torch.launch.microbench` are timed that way.
-  * :class:`Graphs` runs steps on static buffers.  It belongs to ONE owner
-    (a server) and holds that owner's graphs and their memory pool, so they
-    are freed with the owner.  :meth:`Graphs.bind` ties a step to the
-    tensors it reads and writes; on the card (``capture=True``) the first
-    call of a bound step runs its body once for real (the warm-up, on a side
-    stream), then captures it; every later call replays the graph.  A graph
-    is bound to the buffers it was captured on: binding the same key and
-    shape class to other buffers raises.  Two owners with the same context
-    therefore share the registry's step but never its graphs: each captures
-    its own.  With ``capture=False`` (the CPU, and the eager path on the
-    card) the same body runs through the same static buffers on every call.
-    A capture or replay that fails raises; nothing falls back to eager.
+  * :class:`Graphs` runs steps on static buffers.  It belongs to one owner
+    (a server) at a time and holds that owner's graphs and their memory
+    pool.  :meth:`Graphs.bind` ties a step to the tensors it reads and
+    writes; on the card (``capture=True``) the first call of a bound step
+    runs its body once for real (the warm-up, on a side stream), then
+    captures it; every later call replays the graph.  A graph is bound to
+    the buffers it was captured on: binding the same key and shape class to
+    other buffers raises.  Two LIVE owners with the same context therefore
+    share the registry's step but never its graphs: each captures its own.
+    With ``capture=False`` (the CPU, and the eager path on the card) the
+    same body runs through the same static buffers on every call.  A
+    capture or replay that fails raises; nothing falls back to eager.
+  * :func:`hand_over` and :func:`take_over` pass a finished owner's state
+    (its :class:`Graphs` and the static buffers they are bound to) to the
+    next owner of the same model and context, as the reference's servers
+    share their compiled steps in process: a server built after another of
+    the same params and context replays the programs the first captured
+    instead of capturing its own.  A state is taken by one owner at a time
+    (:func:`take_over` removes it), so two live owners never share buffers.
+    :func:`drop_handed_over` frees what nobody took (the pool holds the
+    params the graphs read).
   * :func:`persistent_cache_dir` namespaces the port's persistent cache,
     the built kernel libraries (``repro_torch.kernels.build``), by this
     process's hardware and software fingerprints, as the reference does
@@ -47,6 +56,7 @@ no torch meaning and are not ported; nothing here reads the environment.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import gc
@@ -62,7 +72,8 @@ import torch
 from .configstore import hardware_fingerprint, sw_fingerprint
 
 __all__ = ["CachedStep", "Graphs", "BoundStep", "cached_step", "cache_counters", "step_counts",
-           "clear_registry", "config_signature", "persistent_cache_dir", "launch_counters"]
+           "clear_registry", "config_signature", "persistent_cache_dir", "launch_counters",
+           "model_identity", "hand_over", "take_over", "drop_handed_over", "HANDED_MAX"]
 
 _SANITIZE = re.compile(r"[^A-Za-z0-9._-]+")
 
@@ -152,11 +163,55 @@ def step_counts() -> Dict[str, Dict[str, int]]:
 
 
 def clear_registry() -> None:
-    """Drop every memoized step and zero the counters (tests)."""
+    """Drop every memoized step and every handed-over state, and zero the
+    counters (tests)."""
     with _LOCK:
         _REGISTRY.clear()
         _BY_KEY.clear()
+        _HANDED.clear()
         _COUNTERS.update(hits=0, misses=0, build_seconds=0.0, captures=0, replays=0)
+
+
+# =============================================================================
+# Hand-over: programs and buffers that outlive their owner
+# =============================================================================
+HANDED_MAX = 8                   # states kept for later owners; the oldest goes first
+_HANDED: "collections.OrderedDict[Hashable, Any]" = collections.OrderedDict()
+
+
+def model_identity(params: Any) -> Tuple:
+    """The identity of a model's parameters as a graph sees them: the tree
+    object and the address of every leaf (a graph reads its weights at the
+    addresses it was captured on)."""
+    return (id(params), tuple(x.data_ptr() for x in _leaves(params)
+                              if isinstance(x, torch.Tensor)))
+
+
+def hand_over(key: Hashable, state: Any) -> None:
+    """Offer a finished owner's ``state`` to the next owner of ``key`` (the
+    model's identity and the owner's context).  One state per key: a later
+    one replaces it.  At most :data:`HANDED_MAX` keys are kept."""
+    with _LOCK:
+        dropped = [_HANDED.pop(key, None)]
+        _HANDED[key] = state
+        while len(_HANDED) > HANDED_MAX:
+            dropped.append(_HANDED.popitem(last=False)[1])
+    del dropped                      # freed outside the lock
+
+
+def take_over(key: Hashable) -> Optional[Any]:
+    """The state handed over under ``key``, removed from the pool (one owner
+    at a time), or None."""
+    with _LOCK:
+        return _HANDED.pop(key, None)
+
+
+def drop_handed_over() -> int:
+    """Free every handed-over state nobody took; returns how many."""
+    with _LOCK:
+        dropped = list(_HANDED.values())
+        _HANDED.clear()
+    return len(dropped)
 
 
 def _count(key: str, **add: float) -> None:
@@ -302,7 +357,7 @@ class BoundStep:
 
 
 class Graphs:
-    """The static-buffer steps of one owner.
+    """The static-buffer steps of one owner at a time.
 
     ``capture=True`` runs each bound step as a CUDA graph (the card only);
     ``capture=False`` runs its body eagerly.  All graphs share one memory

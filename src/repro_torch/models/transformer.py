@@ -1,16 +1,23 @@
-"""Transformer stacks: dense, MoE, SSM (Mamba-2) and hybrid (Hymba) blocks.
+"""Transformer stacks for the six families.
 
-The port of ``repro/models/transformer.py`` for four families:
+The port of ``repro/models/transformer.py``:
 
   dense   norm→attn→res, norm→mlp→res
   moe     norm→attn→res, norm→moe→res (+aux loss summed over the layers)
   ssm     norm→mamba2→res
   hybrid  norm→(attn ∥ ssm: averaged)→res, norm→mlp→res   (Hymba)
+  encdec  encoder stack (``encoder`` blocks: dense with NON-causal
+          self-attention) + decoder stack (``decoder`` blocks: causal
+          self-attention, cross-attention over the normed encoder output,
+          mlp)
+  vlm     groups: one ``xblock`` (norm→cross-attention over the modal
+          source→res), then ``cross_attn_period`` dense blocks
 
 The reference scans stacked parameters so its HLO stays O(1) in depth;
-PyTorch runs eagerly, so the port holds one parameter dict per layer and
-loops over them.  The other block kinds (encoder-decoder, VLM) come with
-their families.
+PyTorch runs eagerly, so the port holds one parameter dict per layer (for
+the VLM, one dict per group: ``{"xb": cross block, "blocks": [period
+dense layers]}``, built by :func:`repro_torch.models.model.stack_args`)
+and loops over them.
 
 ``stack_settings`` is the ``torch_layer_stack`` component, resolved per
 :func:`stack_workload` as in the reference.  ``remat`` is the activation
@@ -24,6 +31,9 @@ checkpoint applied to each layer of :func:`forward_stack` under autograd
     matrix products (``aten.mm``, ``bmm``, ``addmm``: the MoE's expert
     products are ``bmm``) and recomputes the rest (``jax.checkpoint_policies.checkpoint_dots``).
 
+The checkpointed unit is the reference's: a layer, or a VLM group (the
+reference also checkpoints each dense layer inside a group; one level is
+kept here, the same numbers at one recompute less).
 Under ``full`` and ``dots`` the recompute runs the layer's Python again,
 so each attention or SSD kernel launches twice per layer and step (once
 forward, once recomputed); under ``none`` once.  ``loss_chunk`` is read
@@ -41,7 +51,7 @@ from torch.utils import checkpoint as _ckpt
 from ..core.configstore import bucket_pow2
 from ..core.registry import MetricSpec, tunable_component
 from ..core.tunable import Categorical, Int
-from .attention import apply_attn, apply_attn_decode, attn_params
+from .attention import apply_attn, apply_attn_decode, attn_params, cross_attn_params
 from .config import ModelConfig
 from .layers import P, apply_mlp, apply_norm, mlp_params, norm_params
 from .moe import apply_moe, moe_params
@@ -50,7 +60,7 @@ from .ssm import apply_ssm, apply_ssm_decode, ssm_params
 __all__ = ["FAMILIES", "stack_settings", "stack_workload", "block_specs", "stack_specs",
            "remat_wrap", "forward_stack", "prefill_stack", "decode_stack"]
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")   # the model families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")   # the model families the port runs
 
 
 @tunable_component(
@@ -80,10 +90,11 @@ def stack_workload(kind: str, b: int, s: int, n_layers: int) -> str:
 
 
 # --------------------------------------------------------------------- specs
-def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """P-spec tree for ONE layer of the config's family."""
-    kind = cfg.family
-    if kind == "dense":
+def block_specs(cfg: ModelConfig, kind: str = "auto") -> Dict[str, Any]:
+    """P-spec tree for ONE layer of the given block kind (``auto``: the
+    config's family)."""
+    kind = cfg.family if kind == "auto" else kind
+    if kind in ("dense", "encoder"):
         return {"ln1": norm_params(cfg), "attn": attn_params(cfg),
                 "ln2": norm_params(cfg), "mlp": mlp_params(cfg)}
     if kind == "moe":
@@ -94,8 +105,13 @@ def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if kind == "hybrid":
         return {"ln1": norm_params(cfg), "attn": attn_params(cfg), "ssm": ssm_params(cfg),
                 "ln2": norm_params(cfg), "mlp": mlp_params(cfg)}
-    raise NotImplementedError(f"the port runs the {'/'.join(FAMILIES)} families; "
-                              f"{cfg.name} is {kind}")
+    if kind == "decoder":  # enc-dec decoder layer
+        return {"ln1": norm_params(cfg), "attn": attn_params(cfg),
+                "lnx": norm_params(cfg), "xattn": cross_attn_params(cfg),
+                "ln2": norm_params(cfg), "mlp": mlp_params(cfg)}
+    if kind == "xblock":   # vlm cross-attention block
+        return {"lnx": norm_params(cfg), "xattn": cross_attn_params(cfg)}
+    raise ValueError(f"no block kind {kind!r} ({cfg.name} is {cfg.family})")
 
 
 def stack_specs(specs: Any, n: int) -> Any:
@@ -120,39 +136,69 @@ def _pad_kv(k: torch.Tensor, cfg: ModelConfig, cap: int) -> torch.Tensor:
     return torch.cat([k, pad], dim=1)  # slots [0, sl) filled; pos continues at sl
 
 
-def _block(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, keep_state: bool = True
+def _cross(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, src: torch.Tensor,
+           state: Dict[str, Any], keep_state: bool) -> torch.Tensor:
+    """x + cross-attention of norm(x) over ``src``; the projected source
+    goes to ``state["xk"]``, ``state["xv"]`` (the static cross cache)."""
+    h, (xk, xv) = apply_attn(lp["xattn"], apply_norm(lp["lnx"], x, cfg), cfg, xkv=src)
+    if keep_state:
+        state["xk"], state["xv"] = xk, xv
+    return x + h
+
+
+def _block(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
+           src: Optional[torch.Tensor] = None, keep_state: bool = True
            ) -> Tuple[torch.Tensor, Dict[str, Any], Optional[torch.Tensor]]:
-    """One full-sequence block.  Returns (x, the layer's decode state, the
-    MoE aux loss or None): K/V of every position for attention, the conv
-    history and SSD state for an SSM mixer; an empty state without
-    ``keep_state``."""
+    """One full-sequence block of ``kind``.  Returns (x, the layer's decode
+    state, the MoE aux loss or None): K/V of every position for attention,
+    the cross cache of a decoder layer, the conv history and SSD state for
+    an SSM mixer; an empty state without ``keep_state``."""
     state: Dict[str, Any] = {}
     xn = apply_norm(lp["ln1"], x, cfg)
-    if cfg.family == "ssm":
+    if kind == "ssm":
         y, ssm_state = apply_ssm(lp["ssm"], xn, cfg, return_state=keep_state)
         if keep_state:
             state["ssm"] = ssm_state
         return x + y, state, None
-    h, kv = apply_attn(lp["attn"], xn, cfg, causal=True)
+    h, kv = apply_attn(lp["attn"], xn, cfg, causal=kind != "encoder")
     if keep_state:
         state["k"], state["v"] = kv
-    if cfg.family == "hybrid":
+    if kind == "hybrid":
         s, ssm_state = apply_ssm(lp["ssm"], xn, cfg, return_state=keep_state)
         if keep_state:
             state["ssm"] = ssm_state
         h = (h + s) / 2.0
     x = x + h
-    if cfg.family == "moe":
+    if kind == "decoder":
+        x = _cross(lp, x, cfg, src, state, keep_state)
+    if kind == "moe":
         y, aux = apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg), cfg)
         return x + y, state, aux
     return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg), state, None
 
 
-def _layer(lp: Dict[str, Any], x: torch.Tensor,
-           cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One block of the train/forward pass: (x, MoE aux or None); no decode
-    state is kept."""
-    x, _, aux = _block(lp, x, cfg, keep_state=False)
+def _group(gp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, src: torch.Tensor,
+           keep_state: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One VLM group: the cross block over the modal source, then its
+    dense layers.  State: ``{"xk", "xv", "inner": [per-layer K/V]}``."""
+    state: Dict[str, Any] = {}
+    x = _cross(gp["xb"], x, cfg, src, state, keep_state)
+    inner = []
+    for lp in gp["blocks"]:
+        x, layer_state, _ = _block(lp, x, cfg, "dense", keep_state=keep_state)
+        inner.append(layer_state)
+    if keep_state:
+        state["inner"] = inner
+    return x, state
+
+
+def _layer(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
+           src: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One unit of the train/forward pass (a layer, or a VLM group): (x,
+    MoE aux or None); no decode state is kept."""
+    if kind == "vlm":
+        return _group(lp, x, cfg, src, keep_state=False)[0], None
+    x, _, aux = _block(lp, x, cfg, kind, src, keep_state=False)
     return x, aux
 
 
@@ -175,60 +221,97 @@ def remat_wrap(fn: Callable, policy: str) -> Callable:
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
-def forward_stack(layers: List[Dict[str, Any]], x: torch.Tensor,
-                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence pass over the layer stack.  Returns (x, the MoE aux
-    loss summed over the layers: 0 for the other families).  Under
-    autograd each layer runs under the resolved ``remat`` policy; without
-    it, as it is."""
+def forward_stack(layers: List[Any], x: torch.Tensor, cfg: ModelConfig, *,
+                  kind: Optional[str] = None, src: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence pass over a stack of ``kind`` (default: the config's
+    family; ``encoder`` and ``decoder`` for the two stacks of an
+    encoder-decoder; ``vlm``: ``layers`` are groups).  ``src`` is the
+    cross-attention source.  Returns (x, the MoE aux loss summed over the
+    layers: 0 for the other families).  Under autograd each unit (a layer,
+    a VLM group) runs under the resolved ``remat`` policy; without it, as
+    it is."""
+    kind = kind or cfg.family
     layer = _layer
     if torch.is_grad_enabled():
-        s = stack_settings.settings_for(stack_workload(cfg.family, x.shape[0], x.shape[1],
+        s = stack_settings.settings_for(stack_workload(kind, x.shape[0], x.shape[1],
                                                        cfg.n_layers))
         layer = remat_wrap(_layer, s["remat"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
-        x, a = layer(lp, x, cfg)
+        x, a = layer(lp, x, cfg, kind, src)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def prefill_stack(layers: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfig,
-                  cache_capacity: int) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """Full-sequence pass that also fills each layer's decode state:
+def prefill_stack(layers: List[Any], x: torch.Tensor, cfg: ModelConfig, cache_capacity: int,
+                  *, kind: Optional[str] = None, src: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+    """Full-sequence pass that also fills each unit's decode state:
     attention layers keep K/V of the last ``cache_capacity`` positions, SSM
-    layers their (conv, ssd) state.  Returns (x, per-layer caches)."""
+    layers their (conv, ssd) state, cross-attention the projected source
+    (``xk``, ``xv``; every source position).  Returns (x, per-unit caches:
+    one dict per layer, one ``{"xk", "xv", "inner"}`` per VLM group)."""
+    kind = kind or cfg.family
     cap = cfg.cache_len(cache_capacity)
-    caches = []
-    for lp in layers:
-        x, cache, _ = _block(lp, x, cfg)
+
+    def pad(cache: Dict[str, Any]) -> Dict[str, Any]:
         if "k" in cache:
             cache["k"], cache["v"] = _pad_kv(cache["k"], cfg, cap), _pad_kv(cache["v"], cfg, cap)
+        return cache
+
+    caches = []
+    for lp in layers:
+        if kind == "vlm":
+            x, cache = _group(lp, x, cfg, src)
+            cache["inner"] = [pad(c) for c in cache["inner"]]
+        else:
+            x, cache, _ = _block(lp, x, cfg, kind, src)
+            pad(cache)
         caches.append(cache)
     return x, caches
 
 
-def decode_stack(layers: List[Dict[str, Any]], x: torch.Tensor,
-                 caches: List[Dict[str, Any]], pos: Union[int, torch.Tensor],
-                 cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
-    """One-token pass over the layer stack.  Every cache leaf is updated in
-    place (see :func:`apply_attn_decode` and :func:`apply_ssm_decode`)."""
-    kind = cfg.family
+def _decode_block(lp: Dict[str, Any], x: torch.Tensor, cache: Dict[str, Any],
+                  pos: Union[int, torch.Tensor], cfg: ModelConfig, kind: str) -> torch.Tensor:
+    xn = apply_norm(lp["ln1"], x, cfg)
+    if kind == "ssm":
+        y, _ = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
+        return x + y
+    h, _ = apply_attn_decode(lp["attn"], xn, cache, pos, cfg)
+    if kind == "hybrid":
+        s, _ = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
+        h = (h + s) / 2.0
+    x = x + h
+    if kind == "decoder":
+        x = x + _cross_decode(lp, x, cache, pos, cfg)
+    if kind == "moe":
+        y, _ = apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg), cfg)
+        return x + y
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+
+
+def _cross_decode(lp: Dict[str, Any], x: torch.Tensor, cache: Dict[str, Any],
+                  pos: Union[int, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    h, _ = apply_attn_decode(lp["xattn"], apply_norm(lp["lnx"], x, cfg),
+                             {"k": cache["xk"], "v": cache["xv"]}, pos, cfg, cross=True)
+    return h
+
+
+def decode_stack(layers: List[Any], x: torch.Tensor, caches: List[Dict[str, Any]],
+                 pos: Union[int, torch.Tensor], cfg: ModelConfig, *,
+                 kind: Optional[str] = None) -> Tuple[torch.Tensor, List[Dict[str, Any]]]:
+    """One-token pass over the stack (``kind`` as :func:`prefill_stack`).
+    Every self-attention and SSM cache leaf is updated in place (see
+    :func:`apply_attn_decode` and :func:`apply_ssm_decode`); the cross
+    caches are read, never written."""
+    kind = kind or cfg.family
     for lp, cache in zip(layers, caches):
-        xn = apply_norm(lp["ln1"], x, cfg)
-        if kind == "ssm":
-            y, _ = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
-            x = x + y
-            continue
-        h, _ = apply_attn_decode(lp["attn"], xn, cache, pos, cfg)
-        if kind == "hybrid":
-            s, _ = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
-            h = (h + s) / 2.0
-        x = x + h
-        if kind == "moe":
-            y, _ = apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg), cfg)
-            x = x + y
+        if kind == "vlm":
+            x = x + _cross_decode(lp["xb"], x, cache, pos, cfg)
+            for inner_lp, inner_cache in zip(lp["blocks"], cache["inner"]):
+                x = _decode_block(inner_lp, x, inner_cache, pos, cfg, "dense")
         else:
-            x = x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+            x = _decode_block(lp, x, cache, pos, cfg, kind)
     return x, caches

@@ -1,8 +1,14 @@
 """Serving loop: slot-level continuous batching with amortized host sync.
 
 The port of ``repro/runtime/serve_loop.py``.  It serves every family whose
-caches :mod:`repro_torch.models.model` builds (dense, moe, ssm, hybrid):
-the scheduler sees a cache only through ``init_cache`` and ``merge_slot``.
+caches :mod:`repro_torch.models.model` builds (dense, moe, ssm, hybrid,
+encdec, vlm): the scheduler sees a cache only through ``init_cache`` and
+``install_slot``.  An encoder-decoder or a VLM also takes a modal input,
+the stubbed frontend's output: as in the reference, zeros of width
+``d_model`` in float32, ``num_modal_tokens`` long for a VLM and
+``max(2, bucket_pow2(capacity // 4))`` for an encoder-decoder, one length
+per server, since every admitted request shares the batched cross
+caches.
 For MoE, expert capacity couples the rows of a step (every slot routes,
 live or not, as in the reference), so a stream depends on its batch and
 continuous batching is not a pure reordering of one-at-a-time decoding;
@@ -57,24 +63,40 @@ graph per shape class, owned by this server (:class:`compilecache.Graphs`);
 (the CPU's only path).  The hot-swap knobs need no recapture: no step reads
 them.  The tuned settings the kernels read are resolved when a graph is
 captured (see :mod:`repro_torch.core.compilecache`).
+
+Programs outlive their server, as the reference's compiled steps do ("two
+servers over the same (config, capacity, batch) share compiled artifacts
+in-process"): when a server is freed, its graphs and the static buffers
+they are bound to are handed over (``compilecache.hand_over``) under the
+model's identity (the params tree and every leaf's address) and the
+server's context (config signature, workload, capacity, ``max_batch``,
+``eos_id``, step mode, device).  A later server of that model and context
+takes them over and starts from the empty state a new server has (every
+slot done, ``tok``/``pos`` and the history zero, the caches zeroed), so its
+streams equal a new server's; it captures only the shape classes its
+predecessors never ran.  A server built while another of its context is
+alive captures its own.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import time
+import weakref
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core import compilecache
 from ..core.compilecache import Graphs, cached_step, config_signature
 from ..core.configstore import bucket_pow2
 from ..core.registry import MetricSpec, tunable_component
 from ..core.tunable import Int
 from ..models import model as M
 from ..models.config import ModelConfig
+from ..tree import leaves
 
 __all__ = ["serve_settings", "ServeSettings", "BatchedServer", "workload_signature",
            "HOT_SWAP_KNOBS", "COMPONENT", "STEPS", "HISTORY"]
@@ -128,13 +150,15 @@ def resolve_step(step: Optional[str], device: torch.device) -> str:
 # Module-level functions of their arguments (and of the partial's config),
 # so the registry's steps hold no server: a server's buffers live as long
 # as the server does.
-def _prefill(params: Dict[str, Any], tokens: torch.Tensor, *, cfg: ModelConfig, capacity: int):
-    return M.prefill(params, cfg, tokens, capacity)
+def _prefill(params: Dict[str, Any], tokens: torch.Tensor, modal: Optional[torch.Tensor], *,
+             cfg: ModelConfig, capacity: int):
+    return M.prefill(params, cfg, tokens, capacity, modal)
 
 
-def _admit(params, tokens, slots, caches, tok, pos, done, *, prefill, install) -> None:
-    """Prefill ``tokens`` and install its rows into ``slots`` of the state."""
-    logits, small, width = prefill(params, tokens)
+def _admit(params, tokens, modal, slots, caches, tok, pos, done, *, prefill, install) -> None:
+    """Prefill ``tokens`` (with ``modal``) and install its rows into
+    ``slots`` of the state."""
+    logits, small, width = prefill(params, tokens, modal)
     install(caches, small, slots, tok, pos, done, logits, width)
 
 
@@ -171,6 +195,37 @@ def _host_fetch(x: torch.Tensor) -> np.ndarray:
     host syncs by monkeypatching this name; the continuous engine calls it
     exactly once per ``sync_interval`` decode steps."""
     return x.cpu().numpy()
+
+
+class _Static:
+    """A server's static buffers and the steps bound to them: what a later
+    server of the same model and context takes over.  The steps write the
+    buffers in place; nothing rebinds them (a graph replays on the buffers
+    it was captured on)."""
+
+    def __init__(self, capture: bool, max_batch: int, device: torch.device):
+        self.graphs = Graphs(capture=capture)
+        self.admit: Dict[Tuple[int, int], Any] = {}    # (rows, width) -> bound step
+        self.decode: Dict[str, Any] = {}               # key -> bound step
+        self.caches = None                             # built at the first admission
+        self.prompts: Dict[Tuple[int, int], torch.Tensor] = {}
+        self.modal: Dict[int, Optional[torch.Tensor]] = {}   # rows -> zero frames
+        z = functools.partial(torch.zeros, device=device, dtype=torch.long)
+        self.tok, self.pos = z((max_batch,)), z((max_batch,))
+        self.done = torch.ones((max_batch,), dtype=torch.bool, device=device)
+        self.hist, self.hist_row, self.slot = z((HISTORY, max_batch)), z((1,)), z((1,))
+        self.all_slots = torch.arange(max_batch, device=device)
+
+    def reset(self) -> None:
+        """A new server's state: every slot done, the registers and the
+        history zero, the caches zeroed (an idle slot decodes on them, and
+        a MoE step couples it to the live ones)."""
+        self.done.fill_(True)
+        for t in (self.tok, self.pos, self.hist, self.hist_row):
+            t.zero_()
+        if self.caches is not None:
+            for leaf in leaves(self.caches):
+                leaf.zero_()
 
 
 @dataclasses.dataclass
@@ -224,7 +279,10 @@ class BatchedServer:
         self.admission = int(o.get("admission", s["admission"]))
         self.prefill_chunk = int(o.get("prefill_chunk", s["prefill_chunk"]))
         self.sync_interval = _check_interval(int(o.get("sync_interval", s["sync_interval"])))
-        self._axes = M.cache_batch_axes(cfg, self.max_batch, capacity)
+        # cross caches are shared by every admitted request, so the modal
+        # length is fixed per server, not per prompt width (the reference's)
+        self._enc_len = cfg.num_modal_tokens or max(2, bucket_pow2(max(1, capacity // 4)))
+        self._axes = M.cache_batch_axes(cfg, self.max_batch, capacity, self._enc_len)
 
         # the reference's four compiled sites, keyed and contexted as there
         sig = config_signature(cfg)
@@ -243,31 +301,57 @@ class BatchedServer:
             context=(sig, self.workload, capacity, self.max_batch, eos_id))
         self._admit_fn = functools.partial(_admit, prefill=self._prefill_step,
                                            install=self._install_step)
-        self.graphs = Graphs(capture=self.step_mode == "graph")
-        self._admit_steps: Dict[Tuple[int, int], Any] = {}   # (rows, width) -> bound step
-        self._decode_bound = None
+
+        # per-slot device state and the steps bound to it, taken over from a
+        # finished server of this model and context where there is one
+        key = (compilecache.model_identity(params), sig, self.workload, capacity,
+               self.max_batch, eos_id, self.step_mode, str(self.device))
+        st = compilecache.take_over(key)
+        if st is None:
+            st = _Static(self.step_mode == "graph", self.max_batch, self.device)
+        else:
+            st.reset()
+        self._st = st
+        weakref.finalize(self, compilecache.hand_over, key, st).atexit = False
 
         self.queue: Deque[_Request] = deque()
         self.results: Dict[int, _Request] = {}
         self._next_rid = 0
-        # per-slot device state; empty slots start done.  Static buffers: the
-        # steps write them in place and the server never rebinds them.
         self._slot_req: List[Optional[_Request]] = [None] * self.max_batch
         self._free: List[int] = list(range(self.max_batch))
-        self._caches = None                 # lazily built on first admission
-        dev = self.device
-        self._tok = torch.zeros((self.max_batch,), dtype=torch.long, device=dev)
-        self._pos = torch.zeros((self.max_batch,), dtype=torch.long, device=dev)
-        self._done = torch.ones((self.max_batch,), dtype=torch.bool, device=dev)
-        self._hist = torch.zeros((HISTORY, self.max_batch), dtype=torch.long, device=dev)
-        self._hist_row = torch.zeros((1,), dtype=torch.long, device=dev)
-        self._slot = torch.zeros((1,), dtype=torch.long, device=dev)
-        self._all_slots = torch.arange(self.max_batch, device=dev)
-        self._prompts: Dict[Tuple[int, int], torch.Tensor] = {}
         self.decode_steps = 0               # lifetime counters
         self.decode_syncs = 0
         self.prefill_calls = 0
+        self.prefill_captures = 0           # admission programs this server captured
         self._begin_run(None)
+
+    # ------------------------------------------------- the static state
+    @property
+    def graphs(self) -> Graphs:
+        return self._st.graphs
+
+    @graphs.setter
+    def graphs(self, graphs: Graphs) -> None:
+        """Run the steps through ``graphs`` from now on (bound anew)."""
+        self._st.graphs = graphs
+        self._st.admit.clear()
+        self._st.decode.clear()
+
+    @property
+    def _caches(self) -> Any:
+        return self._st.caches
+
+    @property
+    def _hist(self) -> torch.Tensor:
+        return self._st.hist
+
+    @property
+    def _hist_row(self) -> torch.Tensor:
+        return self._st.hist_row
+
+    @property
+    def _admit_steps(self) -> Dict[Tuple[int, int], Any]:
+        return self._st.admit
 
     # ------------------------------------------------------------- admission
     def submit(self, prompt: np.ndarray, budget: Optional[int] = None,
@@ -311,27 +395,37 @@ class BatchedServer:
             b = min(b, self.capacity - width)  # full cache must not wrap
         return max(1, b)
 
-    def _ensure_state(self) -> None:
-        if self._caches is None:
-            self._caches = M.init_cache(self.cfg, self.max_batch, self.capacity,
-                                        device=self.device)
+    def _modal(self, rows: int) -> Optional[torch.Tensor]:
+        """The stubbed frontend's frames for ``rows`` prompts (encdec, vlm):
+        zeros (rows, enc_len, d_model) in float32, one static buffer a row
+        count; None for the other families."""
+        st = self._st
+        if rows not in st.modal:
+            st.modal[rows] = (torch.zeros((rows, self._enc_len, self.cfg.d_model),
+                                          dtype=torch.float32, device=self.device)
+                              if self.cfg.family in ("encdec", "vlm") else None)
+        return st.modal[rows]
 
     def _run_admission(self, reqs: List[_Request], rows: int, width: int,
                        slots: torch.Tensor) -> None:
         """One admission program: prefill ``reqs`` (padded to ``rows``) at
         ``width`` and install row i into ``slots[i]`` of the state."""
-        self._ensure_state()
+        st = self._st
+        if st.caches is None:
+            st.caches = M.init_cache(self.cfg, self.max_batch, self.capacity, self._enc_len,
+                                     device=self.device)
         key = (rows, width)
-        prompts = self._prompts.get(key)
+        prompts = st.prompts.get(key)
         if prompts is None:
-            prompts = self._prompts[key] = torch.zeros((rows, width), dtype=torch.long,
-                                                       device=self.device)
+            prompts = st.prompts[key] = torch.zeros((rows, width), dtype=torch.long,
+                                                    device=self.device)
         prompts.copy_(self._pad_prompts(reqs, rows, width))
-        bound = self._admit_steps.get(key)
+        bound = st.admit.get(key)
         if bound is None:
-            bound = self._admit_steps[key] = self.graphs.bind(
-                "serve.prefill", self._admit_fn, self.params, prompts, slots, self._caches,
-                self._tok, self._pos, self._done)
+            bound = st.admit[key] = st.graphs.bind(
+                "serve.prefill", self._admit_fn, self.params, prompts, self._modal(rows), slots,
+                st.caches, st.tok, st.pos, st.done)
+        self.prefill_captures += bound.capture and bound.graph is None
         bound()
         self.prefill_calls += 1
 
@@ -355,19 +449,28 @@ class BatchedServer:
         # install IN PLACE: the slot's cache rows and (tok, pos, done)
         # registers.  The first token stays on device: it flows into the
         # decode stream and reaches the host with the next batched sync.
-        self._slot.fill_(slot)
-        self._run_admission([r], 1, width, self._slot)
+        self._st.slot.fill_(slot)
+        self._run_admission([r], 1, width, self._st.slot)
         r.slot = slot
         r.eff_budget = self._eff_budget(r, width)
         self._slot_req[slot] = r
 
+    def _bound_decode(self, key: str) -> Any:
+        """The decode step ``key`` (fused or gang) bound to the state."""
+        st = self._st
+        bound = st.decode.get(key)
+        if bound is None:
+            if key == "serve.decode_fused":
+                args = (self._fused_step, self.params, st.tok, st.caches, st.pos, st.done,
+                        st.hist, st.hist_row)
+            else:
+                args = (self._gang_step, self.params, st.tok, st.caches, st.pos)
+            bound = st.decode[key] = st.graphs.bind(key, *args)
+        return bound
+
     def _decode(self) -> None:
         """One fused decode step over every slot; EOS tracking stays on device."""
-        if self._decode_bound is None:
-            self._decode_bound = self.graphs.bind(
-                "serve.decode_fused", self._fused_step, self.params, self._tok, self._caches,
-                self._pos, self._done, self._hist, self._hist_row)
-        self._decode_bound()
+        self._bound_decode("serve.decode_fused")()
 
     # ------------------------------------------------------- continuous loop
     def begin_run(self, max_new_tokens: Optional[int] = None) -> None:
@@ -417,7 +520,7 @@ class BatchedServer:
             return []
         n = self.sync_interval
         for _ in range(n):
-            # each step CONSUMES self._tok and records it in the history, so
+            # each step CONSUMES the tok register and records it in the history, so
             # the history's rows are exactly the generated-token stream, the
             # prefill's first token included, with no extra host reads
             self._decode()
@@ -430,8 +533,8 @@ class BatchedServer:
     def _sync(self, n: int) -> List[_Request]:
         self.decode_syncs += 1
         self._run_syncs += 1
-        toks_h = _host_fetch(self._hist[:n])                  # (sync_interval, max_batch)
-        self._hist_row.zero_()
+        toks_h = _host_fetch(self._st.hist[:n])                # (sync_interval, max_batch)
+        self._st.hist_row.zero_()
         now = time.perf_counter()
         finished: List[_Request] = []
         for slot, r in enumerate(self._slot_req):
@@ -450,7 +553,7 @@ class BatchedServer:
             # vector in ONE batched write (a host→device copy)
             mask = np.zeros((self.max_batch,), bool)
             mask[[r.slot for r in finished]] = True
-            self._done.logical_or_(torch.from_numpy(mask).to(self.device))
+            self._st.done.logical_or_(torch.from_numpy(mask).to(self.device))
         return finished
 
     def _finish(self, r: _Request, now: float) -> None:
@@ -494,9 +597,9 @@ class BatchedServer:
             live = [self.queue.popleft()
                     for _ in range(min(self.max_batch, len(self.queue)))]
             width = self._width_of(max(len(r.prompt) for r in live))
-            self._run_admission(live, self.max_batch, width, self._all_slots)
+            self._run_admission(live, self.max_batch, width, self._st.all_slots)
             budgets = [self._eff_budget(r, width) for r in live]
-            t_host = _host_fetch(self._tok)
+            t_host = _host_fetch(self._st.tok)
             self.decode_syncs += 1
             self._run_syncs += 1
             for i, r in enumerate(live):
@@ -507,14 +610,10 @@ class BatchedServer:
             for _ in range(max(budgets) - 1):
                 if all(r.done for r in live):
                     break
-                if self._decode_bound is None:
-                    self._decode_bound = self.graphs.bind(
-                        "serve.decode_step", self._gang_step, self.params, self._tok,
-                        self._caches, self._pos)
-                self._decode_bound()
+                self._bound_decode("serve.decode_step")()
                 self.decode_steps += 1
                 self._run_steps += 1
-                t_host = _host_fetch(self._tok)   # the per-token sync the
+                t_host = _host_fetch(self._st.tok)   # the per-token sync the
                 self.decode_syncs += 1        # continuous engine amortizes
                 self._run_syncs += 1
                 for i, r in enumerate(live):

@@ -27,7 +27,6 @@ import torch
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.layers import P, dtype_of
-from ..models.transformer import block_specs
 from ..optim.adamw import adamw_init, adamw_update
 from ..optim.schedules import warmup_cosine
 from ..tree import leaves, tree_map
@@ -37,10 +36,8 @@ __all__ = ["cast_for_compute", "train_state_specs", "TrainHyper", "make_train_st
 
 
 def _spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
-    """The P tree of the port's parameters (``blocks`` one dict per layer)."""
-    specs = dict(M.param_specs(cfg))
-    specs["blocks"] = [block_specs(cfg) for _ in range(cfg.n_layers)]
-    return specs
+    """The P tree of the port's parameters (one dict per layer)."""
+    return M.unstack_blocks(M.param_specs(cfg), cfg)
 
 
 def cast_for_compute(params: Any, cfg: ModelConfig) -> Any:
@@ -97,7 +94,9 @@ def make_train_step(cfg: ModelConfig, hyper: Optional[TrainHyper] = None, *,
     """Returns ``train_step(state, batch, lr_scale=1.0) -> (state, metrics)``.
 
     ``batch`` = {"tokens": (B, S), "labels": (B, S)} integer tensors on the
-    state's device.  ``metrics`` are 0-d tensors: loss, lr, grad_norm, ce
+    state's device, and ``"modal"`` (B, S_src, d) for the encoder-decoder
+    and VLM families (the reference's batch; microbatches split it along B
+    with the tokens).  ``metrics`` are 0-d tensors: loss, lr, grad_norm, ce
     and aux (the MoE balance loss, summed over the layers).  With
     ``microbatches`` > 1 the batch is split along B and the gradients are
     summed in float32 and averaged, as in the reference, which then

@@ -431,7 +431,10 @@ def test_chip_smoke_serve_bench_path_on_cpu(chip_smoke, tmp_path):
     assert row["gang"]["total_tokens"] == row["continuous"]["total_tokens"]
     assert [r["metric"] for r in out["rows"]] == ["heavy_tail_tokens_per_s",
                                                   "heavy_tail_p99_latency_s"]
-    assert out["prefills"] == 3 * (20 + 5)
+    # the warm-ups: 4 prompts at each of the mix's 5 width classes 2..32, as 5
+    # gang batches and 20 continuous prefills; then 2 replays of 20 requests
+    assert out["prefills"] == 5 + 20 + 2 * (20 + 5)
+    assert out["timed_captures"] == {"gang": [0, 0], "continuous": [0, 0]}
     assert out["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}
 
 
@@ -460,7 +463,7 @@ def test_chip_smoke_checks_every_attention_shape_its_serving_phases_run(chip_smo
         return real(q, k, v, **kw)
 
     monkeypatch.setattr(ops, "flash_attention", spy)
-    checked = set(chip_smoke.ATTN_CASES)
+    checked = {case[:8] for case in chip_smoke.ATTN_CASES if case[8]}   # the causal ones
     old = configstore.set_default_store(configstore.ConfigStore(tmp_path / "store"))
     try:
         measure = launch.build_measure(device="cpu")
@@ -601,7 +604,7 @@ def test_chip_smoke_checks_every_moe_prefill_shape(chip_smoke):
     from repro_torch.configs import get_config
 
     olmoe, mixtral = get_config("olmoe-1b-7b"), get_config("mixtral-8x22b")
-    checked = set(chip_smoke.ATTN_CASES)
+    checked = {case[:8] for case in chip_smoke.ATTN_CASES if case[8]}   # the causal ones
     for w in (2 ** k for k in range(1, 11)):
         assert (1, w, w, olmoe.n_heads, olmoe.n_kv_heads, olmoe.hd, 0, 0) in checked
         assert (1, w, w, 4, 2, 16, 0, 0) in checked or w > 32
@@ -635,7 +638,7 @@ def test_chip_smoke_moe_dispatch_and_train_paths_on_cpu(chip_smoke, tmp_path):
         assert d[1.0] >= d[1.25] >= d[2.0] >= 0.0
         assert all(r["bound_ms"] > 0 and "ms" not in r for r in row["strategies"].values())
     assert rows["prefill"]["strategies"]["dense"]["assignments"] == 64 * cfg.moe_top_k
-    out = chip_smoke.moe_train_path("cpu", cfg, batch=2, seq=16, steps=2)
+    out = chip_smoke.train_twice_path("cpu", cfg, batch=2, seq=16, steps=2, label="train-moe")
     assert [r["step"] for r in out["runs"][1]["rows"]] == [0, 1]
     assert out["launches"] == {"flash_attention": 0, "ssd": 0, "rmsnorm": 0}
     resumed = chip_smoke.train_main_path("cpu", cfg, batch=4, seq=64, steps=2, resume_to=3,

@@ -167,6 +167,15 @@ TC_SERVED = {            # (b, sq, sk, h, k, d), attention keywords
     "hymba_s1024": ((1, 1024, 1024, 25, 5, 64), dict(causal=True, window=2048)),
     "hymba_window300": ((1, 1024, 1024, 25, 5, 64), dict(causal=True, window=300)),
     "hymba_ragged_q_offset": ((2, 37, 165, 25, 5, 64), dict(causal=True, q_offset=128)),
+    # seamless-m4t-medium: the encoder over 512 frames, the decoder, cross over the frames
+    "seamless_encoder_s512": ((1, 512, 512, 16, 16, 64), dict(causal=False)),
+    "seamless_decoder_s1024": ((1, 1024, 1024, 16, 16, 64), dict(causal=True)),
+    **{f"seamless_cross_q{w}": ((1, w, 512, 16, 16, 64), dict(causal=False))
+       for w in (2, 64, 1024)},
+    # llama-3.2-vision-11b: causal GQA 32->8, cross over the 1601 modal tokens
+    **{f"vision_s{w}": ((1, w, w, 32, 8, 128), dict(causal=True)) for w in (2, 64, 1024)},
+    **{f"vision_cross_q{w}": ((1, w, 1601, 32, 8, 128), dict(causal=False))
+       for w in (2, 64, 1024)},
 }
 
 
@@ -175,8 +184,10 @@ TC_SERVED = {            # (b, sq, sk, h, k, d), attention keywords
 @pytest.mark.parametrize("block_q", kernel.TILES)
 @pytest.mark.parametrize("block_kv", kernel.TILES)
 def test_tensor_core_kernel_at_the_served_shapes(cuda, name, block_q, block_kv):
-    """The bf16 tensor-core path at OLMo-1B's and hymba-1.5b's widths:
-    causal, sliding window, q_offset, ragged, and no mask at all."""
+    """The bf16 tensor-core path at OLMo-1B's, hymba-1.5b's,
+    seamless-m4t-medium's and llama-3.2-vision-11b's widths: causal, sliding
+    window, q_offset, ragged, no mask at all, and cross-attention (Sq != Sk,
+    a VLM's 1601 keys, which no tile divides)."""
     (b, sq, sk, h, kh, d), kw = TC_SERVED[name]
     q, k, v = _qkv(("served", name), b, sq, sk, h, kh, d, "bfloat16", cuda)
     got = kernel.flash_attention(q, k, v, block_q=block_q, block_kv=block_kv, **kw)
@@ -500,7 +511,8 @@ def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
 # (repro_torch.core.compilecache, repro_torch.runtime.serve_loop): the same
 # kernels run in the same order on the same buffers, so outputs and token
 # streams are identical, not merely close.
-GRAPH_MODELS = ["olmo-1b", "mamba2-780m", "hymba-1.5b", "olmoe-1b-7b", "mixtral-8x22b"]
+GRAPH_MODELS = ["olmo-1b", "mamba2-780m", "hymba-1.5b", "olmoe-1b-7b", "mixtral-8x22b",
+                "seamless-m4t-medium", "llama-3.2-vision-11b"]
 
 
 def _reduced(name, dtype, device, seed=5):
@@ -549,14 +561,19 @@ def test_graph_server_serves_the_eager_streams_and_counts_exactly(cuda, name, dt
     eager, want, eager_launches = _serve_on(params, cfg, cuda, "eager", mode, prompts, **settings)
     graph, got, graph_launches = _serve_on(params, cfg, cuda, "graph", mode, prompts, **settings)
     assert got == want
-    uses = {"flash_attention": cfg.family in ("dense", "moe", "hybrid"),
-            "ssd": cfg.family in ("ssm", "hybrid"), "rmsnorm": False}
-    captures = graph.graphs.captures["serve.prefill"]
+    # launches a prefill: one per attention call (an encoder-decoder's
+    # encoder layers and its decoder's self and cross; a VLM's layers and
+    # its groups' cross blocks) and one SSD scan a layer
+    attn = {"encdec": cfg.enc_layers + 2 * cfg.n_layers,
+            "vlm": cfg.n_layers + cfg.n_layers // max(cfg.cross_attn_period, 1)}.get(
+                cfg.family, cfg.n_layers if cfg.family in ("dense", "moe", "hybrid") else 0)
+    per_prefill = {"flash_attention": attn,
+                   "ssd": cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0, "rmsnorm": 0}
+    captures = graph.prefill_captures
     assert captures == len(graph._admit_steps) and graph.prefill_calls == eager.prefill_calls
-    for k, used in uses.items():
-        assert eager_launches[k] == (eager.prefill_calls * cfg.n_layers if used else 0), k
-        assert graph_launches[k] == ((graph.prefill_calls + captures) * cfg.n_layers
-                                     if used else 0), k
+    for k, n in per_prefill.items():
+        assert eager_launches[k] == eager.prefill_calls * n, k
+        assert graph_launches[k] == (graph.prefill_calls + captures) * n, k
     assert graph.graphs.replays["serve.decode_fused" if mode == "continuous"
                                 else "serve.decode_step"] == graph.decode_steps - 1
 
@@ -667,22 +684,36 @@ def test_a_promotion_reaches_only_graphs_captured_after_it(cuda, tmp_path):
 
 @pytest.mark.cuda
 def test_a_graph_server_frees_its_graphs_and_buffers(cuda):
+    """A freed graph server's graphs and buffers go to the next server of
+    its params and context, which allocates nothing new for them; dropping
+    what was handed over frees them all."""
     import gc
+
+    from repro_torch.core import compilecache
 
     params, cfg = _reduced("olmo-1b", "bfloat16", cuda)
     prompts = _graph_prompts("free", 5)
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
     # a first server sets up what the process keeps (the capture stream's
     # cuBLAS workspace, the built kernels); a second must leave nothing
     _serve_on(params, cfg, cuda, "graph", "continuous", prompts, max_batch=2)
-    gc.collect()
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
+    compilecache.drop_handed_over()
+    base = settle()
     srv, _, _ = _serve_on(params, cfg, cuda, "graph", "continuous", prompts, max_batch=2)
     assert torch.cuda.memory_allocated() > base
     del srv
-    gc.collect()
-    torch.cuda.synchronize()
-    assert torch.cuda.memory_allocated() <= base
+    held = settle()
+    assert held > base                               # handed over, not freed
+    srv, _, _ = _serve_on(params, cfg, cuda, "graph", "continuous", prompts, max_batch=2)
+    assert srv.prefill_captures == 0 and settle() <= held
+    del srv
+    compilecache.drop_handed_over()
+    assert settle() <= base
 
 
 # ------------------------------------------------------------ the GP engine

@@ -336,9 +336,11 @@ def test_a_failed_capture_stops_the_server(olmo, replaying_capture, monkeypatch)
 
 
 def test_a_served_server_is_freed_by_reference_counting(olmo, replaying_capture):
-    """Nothing the server builds refers back to it, so its graphs, caches
-    and buffers are freed the moment it goes (the serving grid and the
-    serve benchmark build dozens of servers a run)."""
+    """Nothing the server builds refers back to it, so it is freed the
+    moment it goes (the serving grid and the serve benchmark build dozens of
+    servers a run); its graphs, caches and buffers are handed over to the
+    next server of its model and context, and freed the moment the
+    hand-over pool drops them."""
     import gc
     import weakref
 
@@ -350,6 +352,8 @@ def test_a_served_server_is_freed_by_reference_counting(olmo, replaying_capture)
         _serve(srv, _prompts(("freed",), 3), budget=4)
         refs = [weakref.ref(x) for x in (srv, srv.graphs, srv._caches[0]["k"], srv._hist)]
         del srv
+        assert refs[0]() is None and all(r() is not None for r in refs[1:])
+        assert compilecache.drop_handed_over() == 1
         assert [r() for r in refs] == [None] * 4
     finally:
         if collecting:
