@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                      over 512 frames, llama-3.2-vision-11b's causal GQA
                      32->8 and cross-attention over 1601 modal tokens, at
                      every prompt width, the train-encdec shapes and the
-                     reduced pair's; each case carries its causal flag; GQA,
+                     reduced pair's; reduced OLMo-1B's shapes in the examples,
+                     the cold/warm children and the training grid, and the
+                     autotune example's B2 S512 H8 K4 D64 at every compiled
+                     tile pair; each case carries its causal flag; GQA,
                      window, q_offset, non-pow2; the campaign grid's four shapes
                      at every tile pair compiled for the dtype; the
                      libraries' shared-memory tables against the
@@ -37,7 +40,7 @@ Phases, in order; any failure exits non-zero before the result lines:
                      compiled chunks, bf16 through ``ssd_tc`` and float32
                      through ``ssd`` (y and the final state; mamba2's and
                      hymba's prefill widths 2…1024, the grid's b2s512h48,
-                     G = 2, non-pow2 S) and RMSNorm (tests/test_kernels.py's
+                     G = 2, non-pow2 S, the examples' reduced mamba2-780m) and RMSNorm (tests/test_kernels.py's
                      shapes, the served widths 1536 and 1600 at 8…16384
                      rows, with and without the residual, every compiled
                      instance at two ragged shapes and at the grid's two).
@@ -82,9 +85,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                      widest prefill and the grid's two shapes, and the
                      float32 FMA kernel at mamba2-780m's.
   9. profile       — the OLMo-1B and mamba2-780m serves again on a warm
-                     server, eager and graph: tokens/s and p50, then under
+                     server on CUDA graphs: tokens/s and p50, then under
                      torch.profiler (device activity only) the device's
-                     busy share and top kernels.
+                     busy share and top kernels.  (The eager profiles were
+                     cut to keep the script inside its time.)
  10. campaign      — the MLOS loop on the card: the full ``kernels`` grid
                      (8 cells over the three kernels, bo, budget 6) through
                      ``repro_torch.launch.campaign`` into a temporary store
@@ -125,6 +129,34 @@ Phases, in order; any failure exits non-zero before the result lines:
                      OLMo-1B, bf16, bo budget 3) into a temporary store:
                      every cell done, every entry filed under this card, a
                      rerun under the same id measures nothing.
+ 13b. figures     — the paper's Figures 3-5 (``repro_torch.bench.fig3_hashtable``,
+                     ``fig4_counters``, ``fig5_spinlock``) with fig3's and
+                     fig5's BO arms on the torch GP engine on the card (the
+                     objectives are host work: host µs, simulated ops/s);
+                     gated on well-formed results (a trace of the budget's
+                     length that never rises and a verdict for every
+                     instance x optimizer, a row per table size whose
+                     collisions never rise, a best spin per workload); the
+                     claims C1-C6 printed, not gated; then the ``demo``
+                     grid with every BO on the engine, gated as the
+                     serving grid.
+ 13c. cold-warm   — ``repro_torch.bench.runner --quick --only
+                     compile_cold_warm``: 6 fresh interpreters each building
+                     the kernels of their first reduced OLMo-1B train step
+                     into an empty root of their own, against 6 on a root
+                     primed by one unmeasured child (all 13 start at once,
+                     then step one at a time); ``check_compile_cold_warm``
+                     (6 a side, ``improved``, a registry miss); every child
+                     launched the attention kernel.  Started in the
+                     background once the serving phases are released, read
+                     after phase 30.
+ 13d. examples    — the five ``repro_torch.examples`` at their smoke sizes
+                     on the card: quickstart (Figure 1, 30 steps), train_lm's
+                     smoke preset on olmo-1b and mamba2-780m (launches =
+                     steps x layers x 2), serve_decode (6 trials), autotune_kernels
+                     (a spawned daemon: its report arrives, it exits 0) and
+                     campaign_quickstart (the resume measures nothing, the
+                     warm start beats the same cell cold).
 
  14. train        — full-width OLMo-1B (1.28 B params, random bf16 weights
                      from seed 0) trained by ``repro_torch.runtime.train_loop.
@@ -142,6 +174,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                      than steps x 16 layers x 2 (the layer recomputed under
                      ``remat`` "full").  Then one warm step again under
                      torch.profiler: busy time, idle share, top kernels.
+ 14b. training-grid — the ``training`` campaign grid in the train phase's
+                     process (reduced OLMo-1B in bf16; the checkpoint policy
+                     at kb2048, the pipeline at b4s128 and b8s256; bo budget
+                     4), gated as the serving grid; it must launch the
+                     attention kernel.
  15. train-ssm    — the same for full-width mamba2-780m at batch 4 x seq
                      1024, one step, a checkpoint, a resumed second step;
                      SSD launches steps x 48 x 2.
@@ -169,7 +206,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                      twin: 16 steps, 3 kills, 10 async/blocking pairs), then
                      ``check_fault_tolerance`` on its JSON: kill → resume
                      bit-identical, no re-measured campaign work, the torn
-                     checkpoint's fallback, async beats blocking.
+                     checkpoint's fallback, async beats blocking.  Started
+                     in the background after 14b, read after 19.
  18. agent        — Figure 1: a spawned ``AgentProcess`` tunes
                      ``torch_train_loop.lr_scale`` (bo, budget 4, 2 steps a
                      config) of full-width OLMo-1B at batch 4 x seq 512 over
@@ -270,10 +308,14 @@ Phases, in order; any failure exits non-zero before the result lines:
                      Function's plain backward); ms by events, MFU reading,
                      peak memory.
 
-Phases 11-13 run after the campaign phase, before the profiles; phases
-20-24 and 26-29 after the profiles, once the serving phases' servers,
-weights and graph pools are released (one model's weights at a time), then
-25 and 30; phases 14-19 after those, once theirs are released too.  A
+Phases 11-13b and 13d run after the campaign phase, before the profiles;
+phases 20-24 and 26-29 after the profiles, once the serving phases'
+servers, weights and graph pools are released (one model's weights at a
+time), then 25 and 30; phases 14-19 after those, once theirs are released
+too.  Two twins whose children are fresh interpreters run in the
+background, each in a process group of its own that the script kills if it
+fails: 13c beside 20-30, 17 beside 15-19 (the train phase and its profile
+run alone).  A
 server hands its graphs and buffers over to the next server of its params
 and context (``repro_torch.core.compilecache``): every release point drops
 what is still handed over.  The script
@@ -355,6 +397,12 @@ ATTN_CASES = [
     (2, XATTN_REDUCED_MODAL, XATTN_REDUCED_MODAL, 4, 2, 16, 0, 0, False),
     *((2, w, w, 4, 2, 16, 0, 0, True) for w in (24, 2)),
     *((2, w, m, 4, 2, 16, 0, 0, False) for w in (24, 2) for m in (XATTN_REDUCED_MODAL, 8)),
+    # reduced OLMo-1B in float32 (GQA 4->2, head dim 16) trained by the examples phase
+    # (quickstart and train_lm's smoke preset at 8 x 64) and by the cold/warm
+    # twin's children (4 x 64); in bf16 by the training grid (2 x 32)
+    (8, 64, 64, 4, 2, 16, 0, 0, True),
+    (4, 64, 64, 4, 2, 16, 0, 0, True),
+    (2, 32, 32, 4, 2, 16, 0, 0, True),
     (2, 256, 256, 32, 8, 128, 0, 0, True),      # GQA
     (1, 300, 300, 16, 16, 128, 48, 0, True),    # sliding window
     (1, 100, 228, 8, 8, 64, 0, 128, True),      # q_offset > 0 (chunked prefill)
@@ -367,6 +415,9 @@ ATTN_CASES = [
 # times and may promote
 ATTN_GRID_CASES = [(b, s, s, 16, 16, 128, 0, 0, True) for b, s in ((1, 128), (2, 256),
                                                                  (2, 512), (4, 1024))]
+# The examples phase's autotune_kernels shape (B2 S512 H8 K4 D64, float32 in
+# the example), which the agent times at every tile pair it proposes
+ATTN_AUTOTUNE_CASES = [(2, 512, 512, 8, 4, 64, 0, 0, True)]
 # (batch, seq, heads, head_dim, state, groups)
 # RMSNorm shapes (..., d): tests/test_kernels.py's spot checks and RMS_GRID,
 # then the served norm widths (mamba2-780m 1536, hymba-1.5b 1600)
@@ -382,6 +433,7 @@ SSD_CASES = [
     (2, 512, 48, 64, 128, 1),            # the campaign grid's b2s512h48
     (1, 300, 48, 64, 128, 1),            # non-pow2 S: a ragged last chunk
     (3, 77, 4, 16, 16, 1),               # P 16, ragged
+    (8, 64, 8, 16, 16, 1),               # reduced mamba2-780m, train_lm's smoke preset (examples)
 ]
 
 
@@ -592,7 +644,9 @@ def phase_kernels(device) -> dict:
         pairs = [(bq, bk) for bq in kernel.TILES for bk in kernel.TILES
                  if kernel.compiled(dtype, bq, bk, 128)]
         cases = [(case, 64, 64) for case in ATTN_CASES] + [
-            (case, bq, bk) for case in ATTN_GRID_CASES for bq, bk in pairs]
+            (case, bq, bk) for case in ATTN_GRID_CASES + ATTN_AUTOTUNE_CASES
+            for bq in kernel.TILES for bk in kernel.TILES
+            if kernel.compiled(dtype, bq, bk, case[5])]
         worst = 0.0
         for i, (case, bq, bk) in enumerate(cases):
             q, k, v = _qkv(case, dtype, device, seed=1000 + i)
@@ -612,7 +666,8 @@ def phase_kernels(device) -> dict:
         errs[str(dtype).replace("torch.", "")] = worst
         print(f"kernels: flash_attention ({kernel.SOURCES[dtype]}) vs naive_attention, {dtype}: "
               f"{len(ATTN_CASES)} cases at tiles 64/64 + {len(ATTN_GRID_CASES)} grid shapes x "
-              f"tile pairs {pairs}, max abs err {worst:.3g} (tol {TOL[dtype]:.3g} abs + rel)")
+              f"tile pairs {pairs} + the autotune example's shape at every compiled tile "
+              f"pair, max abs err {worst:.3g} (tol {TOL[dtype]:.3g} abs + rel)")
     return errs
 
 
@@ -959,6 +1014,88 @@ def _memory(label: str, t_start: float) -> None:
     print(f"{label}: torch.cuda.max_memory_reserved {torch.cuda.max_memory_reserved() / 2**30:.2f} "
           f"GiB, memory_reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - t_start:.1f} s since the start")
+
+
+# --------------------------------------------------------------- background
+_BACKGROUND: list = []
+
+
+class Background:
+    """A command started now in a process group of its own, its standard
+    output and errors into files under ``workdir``, and read by
+    :meth:`finish` later, so the phases in between run beside it.
+    :meth:`stop` kills the group (the command and whatever it started) and
+    removes ``workdir``; :func:`stop_background` stops every one still
+    open."""
+
+    def __init__(self, argv: list, workdir: Path, *, timeout: float):
+        self.dir, self.timeout = Path(workdir), timeout
+        self.what = " ".join(str(a) for a in argv[1:])
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        self.t0 = time.perf_counter()
+        with open(self.dir / "out.log", "w") as out, open(self.dir / "err.log", "w") as err:
+            self.proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out, stderr=err,
+                                         start_new_session=True)
+        _BACKGROUND.append(self)
+
+    def finish(self, label: str) -> float:
+        """Wait for the command (at most ``timeout`` from its start), print
+        its output under ``label`` and raise unless it exited 0; the
+        seconds spent waiting here."""
+        t0 = time.perf_counter()
+        left = self.timeout - (t0 - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(f"{label}: {self.what} did not end within "
+                                 f"{self.timeout:.0f} s") from None
+        waited = time.perf_counter() - t0
+        for line in (self.dir / "out.log").read_text().splitlines():
+            if line.strip():
+                print(f"{label}: {line}")
+        if rc != 0:
+            err = (self.dir / "err.log").read_text()[-4000:]
+            self.stop()
+            raise AssertionError(f"{label}: {self.what} exited {rc}:\n{err}")
+        return waited
+
+    def stop(self) -> None:
+        import shutil
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:                     # the whole group has ended
+            pass
+        self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        if self in _BACKGROUND:
+            _BACKGROUND.remove(self)
+
+
+def stop_background() -> None:
+    for bg in list(_BACKGROUND):
+        bg.stop()
+
+
+def runner_args(name: str, out_dir, *, quick: bool) -> list:
+    """``repro_torch.bench.runner``'s arguments for one twin, its JSON and
+    trajectory under ``out_dir``, its check on (the runner's default)."""
+    return (["--only", name, "--out-dir", str(out_dir),
+             "--trajectory", str(Path(out_dir) / "trajectory.jsonl")]
+            + (["--quick"] if quick else []))
+
+
+def start_twin(name: str, *, quick: bool, timeout: float) -> Background:
+    """``python -m repro_torch.bench.runner`` for one twin on the card, in the
+    background."""
+    import tempfile
+
+    workdir = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
+    return Background([sys.executable, "-m", "repro_torch.bench.runner",
+                       *runner_args(name, workdir, quick=quick)], workdir, timeout=timeout)
 
 
 # ------------------------------------------------------------------- graphs
@@ -1871,21 +2008,45 @@ def phase_serve_bench(device, card: str, serve: dict) -> dict:
 
 
 # ------------------------------------------------------------- serving-grid
-def serving_grid_path(device, *, budget: int, campaign_id: str = "chip-smoke-serving") -> dict:
-    """The ``serving`` campaign grid into a temporary store and journal (the
-    default store for the phase), then again under the same id.  Raises
-    unless every cell is done, every entry is filed under this process's
-    hardware and software, every promoted cell resolves its best, and the
-    rerun measures nothing."""
+def instance_settings(component: str, workload: str) -> dict:
+    """What the component's running instance (the module's settings object
+    the runtime reads: the server's, the checkpoint writer's, the
+    pipeline's) resolves for ``workload``: its explicit keys, then the
+    store, then the declared defaults."""
+    from repro_torch.core import configstore, registry
+
+    return registry.settings_for(configstore.Context(component, workload))
+
+
+def new_instance_settings(component: str, workload: str) -> dict:
+    """What a new instance with no keys of its own resolves for
+    ``workload``: the store, then the declared defaults.  For components
+    that are built anew with their settings as keys (the demo grid's hash
+    tables and spinlocks: every evaluation builds one with the proposal)."""
+    from repro_torch.core import configstore, registry
+
+    space = registry.get_component(component).space
+    return space.validate(configstore.resolve_settings(component, workload,
+                                                       defaults=space.defaults(), space=space))
+
+
+def grid_path(device, grid: str, *, budget: int, campaign_id: str, resolve) -> dict:
+    """A named campaign grid into a temporary store and journal (the default
+    store for the path), then again under the same id.  Raises unless every
+    cell is done, every entry is filed under this process's hardware and
+    software, every promoted cell's best is what ``resolve(component,
+    workload)`` gives (:func:`instance_settings` or
+    :func:`new_instance_settings`: what the component runs with), and the
+    rerun measures nothing.  The kernels' launch counts are zeroed before
+    the first run and read after it."""
     import tempfile
 
     from repro_torch.core import configstore
     from repro_torch.launch import campaign as launch
-    from repro_torch.runtime import serve_loop
 
     kernels = _kernels()
     hw, sw = configstore.hardware_fingerprint(), configstore.sw_fingerprint()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as tmp:
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{grid}_") as tmp:
         store = configstore.ConfigStore(Path(tmp) / "store")
         old = configstore.set_default_store(store)
         try:
@@ -1894,52 +2055,338 @@ def serving_grid_path(device, *, budget: int, campaign_id: str = "chip-smoke-ser
             for fn in kernels.values():              # counts of this path only
                 fn.launches = 0
             t0 = time.perf_counter()
-            camp, results = launch.run_grid("serving", budget=budget, optimizer="bo", seed=0,
+            camp, results = launch.run_grid(grid, budget=budget, optimizer="bo", seed=0,
                                             device=device, campaign_id=campaign_id, store=store,
                                             journal_root=Path(tmp) / "journal")
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in kernels.items()}
             cell_ids = {c.cell_id for c in camp.cells}
-            if len(cell_ids) != 2 or set(camp.journal.completed()) != cell_ids:
-                raise AssertionError(f"cells without a cell_done row: "
+            want = sum(len(w) for w in launch.GRIDS[grid].values())
+            if len(cell_ids) != want or set(camp.journal.completed()) != cell_ids:
+                raise AssertionError(f"{grid}: cells without a cell_done row: "
                                      f"{sorted(cell_ids - set(camp.journal.completed()))}")
-            path = store.root / "torch_serve_batching.json"
-            entries = json.loads(path.read_text())["entries"] if path.exists() else []
+            entries = []
+            for comp in launch.GRIDS[grid]:
+                path = store.root / f"{comp}.json"
+                entries += json.loads(path.read_text())["entries"] if path.exists() else []
             for e in entries:
                 if e["context"]["hardware"] != hw or e["context"]["sw"] != sw:
                     raise AssertionError(f"entry filed under {e['context']}, not {hw} / {sw}")
             for r in results.values():
-                got = serve_loop.serve_settings.settings_for(r.cell.workload)
+                got = resolve(r.cell.component, r.cell.workload)
                 if r.promoted and got != r.best_config:
                     raise AssertionError(f"{r.cell.cell_id}: settings_for gives {got}, "
                                          f"promoted {r.best_config}")
-            again, res2 = launch.run_grid("serving", budget=budget, optimizer="bo", seed=0,
+            again, res2 = launch.run_grid(grid, budget=budget, optimizer="bo", seed=0,
                                           device=device, campaign_id=campaign_id, store=store,
                                           journal_root=Path(tmp) / "journal")
             if again.measure_calls != 0 or not all(r.resumed for r in res2.values()):
-                raise AssertionError(f"resume re-measured: {again.measure_calls} calls")
+                raise AssertionError(f"{grid}: resume re-measured: {again.measure_calls} calls")
         finally:
             configstore.set_default_store(old)
     return {"results": results, "measure_calls": camp.measure_calls, "entries": len(entries),
             "hardware": hw, "wall_s": wall, "launches": launches}
 
 
+def phase_grid(device, card: str, grid: str, *, budget: int, label: str) -> dict:
+    """A campaign grid of settings objects the runtime reads on the card
+    through :func:`grid_path` (each promoted best resolved through the
+    running instance), printed."""
+    from repro_torch.launch import campaign as launch
+
+    out = grid_path(device, grid, budget=budget, campaign_id=f"chip-smoke-{grid}",
+                    resolve=instance_settings)
+    print(f"{label}: the {grid} grid, {len(out['results'])} cells, bo budget {budget}, "
+          f"{out['measure_calls']} measurements, wall {out['wall_s']:.1f} s, on {card}")
+    for _, r in sorted(out["results"].items()):
+        print(f"{label}: " + launch.describe(r))
+    print(f"{label}: {out['entries']} entries filed under {out['hardware']}; launches "
+          f"{out['launches']}; a rerun under the same id measured nothing")
+    return out
+
+
 def phase_serving_grid(device, card: str) -> dict:
     """The ``serving`` grid on the card (reduced OLMo-1B, bf16, budget 3);
     the grid must launch the attention kernel."""
+    t0 = time.perf_counter()
+    out = phase_grid(device, card, "serving", budget=3, label="serving-grid")
+    if not out["launches"]["flash_attention"]:
+        raise AssertionError(f"the serving grid launched no attention kernel: {out['launches']}")
+    print(f"serving-grid: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_training_grid(device, card: str) -> dict:
+    """The ``training`` grid (reduced OLMo-1B in bf16: the checkpoint
+    policy at its state bucket kb2048, the input pipeline at b4s128 and
+    b8s256; bo budget 4) in the train phase's process, on the card; its
+    checkpoint cells train, so the grid must launch the attention kernel."""
+    t0 = time.perf_counter()
+    out = phase_grid(device, card, "training", budget=4, label="training-grid")
+    if not out["launches"]["flash_attention"]:
+        raise AssertionError(f"the training grid launched no attention kernel: "
+                             f"{out['launches']}")
+    print(f"training-grid: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------------ figures
+def figures_path(device, out_dir, *, budget: Optional[int] = None) -> dict:
+    """The paper's Figures 3-5 through the port's twins (``bench/fig3_hashtable``,
+    ``fig4_counters``, ``fig5_spinlock``; fig3's and fig5's BO arms on the torch
+    GP engine on ``device``), written under ``out_dir``, then the ``demo``
+    campaign grid with every BO on the engine.  Raises unless every instance x
+    optimizer of fig3 has a trace of ``budget`` best-so-far values that never
+    rise and a verdict, fig4 has a row per size of its sweep whose collisions
+    never rise, fig5 has a best spin for each workload, and the grid passes
+    :func:`grid_path`'s gates."""
+    from repro_torch.bench import fig3_hashtable as fig3
+    from repro_torch.bench import fig4_counters as fig4
+    from repro_torch.bench import fig5_spinlock as fig5
+    from repro_torch.core.optimizers import optimizer_defaults, set_optimizer_defaults
+    from repro_torch.core.tracking import Tracker
+
+    budget = fig3.BUDGET if budget is None else budget
+    dev = str(torch.device(device))
+    walls = {}
+    t0 = time.perf_counter()
+    f3 = fig3.write(fig3.run(Tracker(Path(out_dir) / "runs"), budget, backend="torch",
+                             device=dev), out_dir, backend="torch", device=dev)
+    walls["fig3"] = time.perf_counter() - t0
+    for inst in fig3.INSTANCES:
+        for opt in fig3.OPTIMIZERS:
+            trace = f3[inst]["traces"][opt]
+            if len(trace) != budget or any(b > a for a, b in zip(trace, trace[1:])):
+                raise AssertionError(f"fig3 {inst} {opt}: trace {trace} (budget {budget})")
+            if f3[inst]["best"][opt]["verdict"] not in ("improved", "regressed", "noise"):
+                raise AssertionError(f"fig3 {inst} {opt}: no verdict: {f3[inst]['best'][opt]}")
+    t0 = time.perf_counter()
+    f4 = fig4.write(fig4.run(), out_dir)
+    walls["fig4"] = time.perf_counter() - t0
+    coll = [r["collisions"] for r in f4["rows"]]
+    if [r["log2_buckets"] for r in f4["rows"]] != fig4.SWEEP or \
+            any(b > a for a, b in zip(coll, coll[1:])):
+        raise AssertionError(f"fig4 rows {[r['log2_buckets'] for r in f4['rows']]}, "
+                             f"collisions {coll}")
+    t0 = time.perf_counter()
+    f5 = fig5.write(fig5.run(backend="torch", device=dev), out_dir, backend="torch",
+                    device=dev)
+    walls["fig5"] = time.perf_counter() - t0
+    if set(f5["workloads"]) != {str(h) for h in fig5.HEAVY} or not all(
+            r["best_spin_grid"] in fig5.GRID and r["best_spin_bo"] >= 1
+            for r in f5["workloads"].values()):
+        raise AssertionError(f"fig5: {f5['workloads']}")
+    old = optimizer_defaults()
+    set_optimizer_defaults(backend="torch", device=dev)
+    try:
+        demo = grid_path(device, "demo", budget=8, campaign_id="chip-smoke-demo",
+                         resolve=new_instance_settings)
+    finally:
+        set_optimizer_defaults(**old)
+    walls["demo"] = demo["wall_s"]
+    return {"fig3": f3, "fig4": f4, "fig5": f5, "demo": demo, "walls": walls}
+
+
+def claims(out: dict) -> list:
+    """The paper's claims C1-C6 as the figures read them: printed, not
+    gated, as the reference prints them."""
+    f3, f4, f5 = out["fig3"], out["fig4"], out["fig5"]
+    lines = []
+    for inst, r in f3.items():
+        b = r["best"]
+        c1 = ", ".join(f"{o} {v['improvement_pct']:+.1f}% [{v['verdict']}]" for o, v in b.items())
+        lines.append(f"C1 tuned vs default ({inst}, default {r['default_host_us']:.0f} host us): "
+                     f"{c1}")
+        bo = min(b["bo_rbf"]["host_us"], b["bo_matern32"]["host_us"])
+        lines.append(f"C3 RS vs BO ({inst}): random {b['random']['host_us']:.0f} against the "
+                     f"better BO {bo:.0f} host us (ratio {b['random']['host_us'] / bo:.3f})")
+        multi = min(v["host_us"] for o, v in b.items() if o != "one_at_a_time")
+        lines.append(f"C4 multi-parameter vs one-at-a-time ({inst}): {multi:.0f} against "
+                     f"{b['one_at_a_time']['host_us']:.0f} host us")
+    lines.append("C2 the surface differs across workloads: best configs " + "; ".join(
+        f"{inst} {r['best']['bo_matern32']['config']}" for inst, r in f3.items()))
+    s = f4["sweet_spot"]
+    lines.append(f"C5 memory vs CPU: sweet spot 2^{s['log2_buckets']} ({s['memory_mb']:.2f} MB) "
+                 f"against 2^{s['against_log2_buckets']}: {s['verdict']} "
+                 f"(effect {100 * s['effect']:+.1f}%)")
+    spins = {h: r["best_spin_grid"] for h, r in f5["workloads"].items()}
+    lines.append(f"C6 the optimal spin shifts with the workload: best grid spin by heavy_ops "
+                 f"{spins} (BO: {({h: r['best_spin_bo'] for h, r in f5['workloads'].items()})})")
+    return lines
+
+
+def phase_figures(device, card: str) -> dict:
+    """Figures 3-5 and the ``demo`` grid on the card (:func:`figures_path`);
+    the claims printed."""
+    import tempfile
+
     from repro_torch.launch import campaign as launch
 
     t0 = time.perf_counter()
-    out = serving_grid_path(device, budget=3)
-    print(f"serving-grid: reduced olmo-1b, bf16, {len(out['results'])} cells, bo budget 3, "
-          f"{out['measure_calls']} measurements, wall {out['wall_s']:.1f} s, on {card}")
-    for _, r in sorted(out["results"].items()):
-        print("serving-grid: " + launch.describe(r))
-    if not out["launches"]["flash_attention"]:
-        raise AssertionError(f"the serving grid launched no attention kernel: {out['launches']}")
-    print(f"serving-grid: {out['entries']} entries filed under {out['hardware']}; launches "
-          f"{out['launches']}; a rerun under the same id measured nothing")
-    print(f"serving-grid: phase wall {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_figures_") as td:
+        out = figures_path(device, td)
+    for line in claims(out):
+        print(f"figures: {line}")
+    for _, r in sorted(out["demo"]["results"].items()):
+        print("figures: demo grid: " + launch.describe(r))
+    w = out["walls"]
+    print(f"figures: host walls fig3 {w['fig3']:.1f} s, fig4 {w['fig4']:.1f} s, fig5 "
+          f"{w['fig5']:.1f} s, demo grid {w['demo']:.1f} s ({out['demo']['measure_calls']} "
+          f"measurements, {out['demo']['entries']} entries under {out['demo']['hardware']}, a "
+          f"rerun measured nothing); BO on the torch engine on {card}")
+    print(f"figures: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- cold-warm
+def start_cold_warm() -> Background:
+    """``python -m repro_torch.bench.runner --quick --only compile_cold_warm``
+    on the card, in the background: its 13 children wait on their imports,
+    on ``nvcc`` and on each other, and the serving phases of the MoE and
+    cross-attention models run beside them.  The runner holds the JSON to
+    ``check_compile_cold_warm``."""
+    return start_twin("compile_cold_warm", quick=True, timeout=600.0)
+
+
+def phase_cold_warm(twin, card: str) -> dict:
+    """The cold/warm twin on the card, read where it ends: 6 cold children,
+    each building into an empty kernel root of its own, against 6 warm ones
+    on a root one unmeasured child primed; the runner's
+    ``check_compile_cold_warm`` gates it (a failing check fails the
+    runner).  Every child must have launched the attention kernel (one
+    train step, the model's layers x 2) and every cold child must have built
+    a library."""
+    try:
+        waited = twin.finish("cold-warm")
+        res = json.loads((twin.dir / "compile_cold_warm.json").read_text())
+    finally:
+        twin.stop()
+    v = res["verdict"]
+    if not res["roots_removed"]:
+        raise AssertionError("the twin left its temporary kernel roots behind")
+    if not all(n > 0 for n in res["launches"]):
+        raise AssertionError(f"a child launched no attention kernel: {res['launches']}")
+    if any(res["cold_libraries"][i] == [] for i in range(len(res["cold_s"]))):
+        raise AssertionError(f"a cold child built nothing: {res['cold_libraries']}")
+    print(f"cold-warm: first step cold {[round(s, 3) for s in res['cold_s']]} s, warm "
+          f"{[round(s, 3) for s in res['warm_s']]} s (priming {res['priming_s']:.3f} s, not "
+          f"counted); median {np.median(res['cold_s']):.3f} -> {np.median(res['warm_s']):.3f} s, "
+          f"{v['verdict']} (effect {v['effect']:+.3f}, p {v['p_value']}); each cold child built "
+          f"{res['cold_libraries'][0]}; counters {res['counters']}; launches per child "
+          f"{res['launches']}; {len(res['launches'])} children in {res['wall_s']:.1f} s ({card})")
+    print(f"cold-warm: ran {time.perf_counter() - twin.t0:.1f} s beside the serving phases of "
+          f"the MoE and cross-attention models; waited {waited:.1f} s for it at its end")
+    return {**res, "path_launches": {"flash_attention": sum(res["launches"]), "ssd": 0,
+                                     "rmsnorm": 0}}
+
+
+# ----------------------------------------------------------------- examples
+EXAMPLES = ("quickstart", "train_lm", "train_lm-mamba2", "serve_decode", "autotune_kernels",
+            "campaign_quickstart")
+
+
+def examples_path(device, tmp) -> dict:
+    """Each of the port's examples (``repro_torch.examples``) through its
+    ``main`` at its smoke size on ``device``, the kernels' launch counts
+    zeroed before each and read after it.  Raises unless every loss is finite,
+    the train examples launch each kernel of their family steps x layers x
+    (1 + recompute) times on the card, every serve trial produced tokens,
+    the spawned agent's session report arrived and its process exited 0,
+    the campaign's resume measured nothing and its warm start reached the
+    cell's best in fewer evaluations than the same cell cold."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import (autotune_kernels, campaign_quickstart, quickstart,
+                                      serve_decode, train_lm)
+
+    dev = str(torch.device(device))
+    tmp = Path(tmp)
+    kernels = _kernels()
+    runs = {
+        "quickstart": (quickstart.main, []),
+        "train_lm": (train_lm.main, ["--ckpt-dir", str(tmp / "train_lm")]),
+        "train_lm-mamba2": (train_lm.main, ["--arch", "mamba2-780m",
+                                            "--ckpt-dir", str(tmp / "train_lm_mamba2")]),
+        "serve_decode": (serve_decode.main, []),
+        "autotune_kernels": (autotune_kernels.main, []),
+        "campaign_quickstart": (campaign_quickstart.main,
+                                ["--store", str(tmp / "store"),
+                                 "--journal-root", str(tmp / "campaign")]),
+    }
+    out = {}
+    for name, (main, argv) in runs.items():
+        if dev.startswith("cuda"):
+            torch.cuda.synchronize()
+        for fn in kernels.values():                  # counts of this example only
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = main(["--device", dev, *argv])
+        if dev.startswith("cuda"):
+            torch.cuda.synchronize()
+        out[name] = {"result": res, "wall_s": time.perf_counter() - t0,
+                     "launches": {k: fn.launches for k, fn in kernels.items()}}
+
+    for name, arch, steps in (("quickstart", "olmo-1b", quickstart.STEPS),
+                              ("train_lm", "olmo-1b", 20), ("train_lm-mamba2", "mamba2-780m", 20)):
+        res, launches = out[name]["result"], out[name]["launches"]
+        if len(res["losses"]) != steps or not all(math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"{name}: losses {res['losses']}")
+        cfg = get_config(arch).reduced().validate()
+        per_step = _expected_launches(cfg, _remat_factor(cfg, 8, 64))
+        want = ({k: v * steps for k, v in per_step.items()} if dev.startswith("cuda")
+                else dict.fromkeys(kernels, 0))      # a CPU tensor never reaches a kernel
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    sd = out["serve_decode"]
+    if not all(t["tokens"] > 0 and t["tokens_per_s"] > 0 for t in sd["result"]["trials"]):
+        raise AssertionError(f"serve_decode: {sd['result']['trials']}")
+    at = out["autotune_kernels"]["result"]
+    if at["report"] is None or at["agent_exitcode"] != 0 or \
+            at["report"]["best_config"] != at["settings"]:
+        raise AssertionError(f"autotune_kernels: report {at['report']}, agent exit code "
+                             f"{at['agent_exitcode']}, settings {at['settings']}")
+    cq = out["campaign_quickstart"]["result"]
+    if cq["resume_measure_calls"] != 0 or cq["warm_start"] is None or \
+            cq["warm_evals"] is None or cq["cold_evals"] is None or \
+            not cq["warm_evals"] < cq["cold_evals"]:
+        raise AssertionError(f"campaign_quickstart: resume measured {cq['resume_measure_calls']}, "
+                             f"warm start {cq['warm_start']}, evals warm {cq['warm_evals']} "
+                             f"cold {cq['cold_evals']}")
+    if dev.startswith("cuda"):
+        for name in ("serve_decode", "autotune_kernels"):
+            if not out[name]["launches"]["flash_attention"]:
+                raise AssertionError(f"{name} launched no attention kernel: "
+                                     f"{out[name]['launches']}")
+    return out
+
+
+def phase_examples(device, card: str) -> dict:
+    """The five examples at their smoke sizes on the card (:func:`examples_path`)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as td:
+        out = examples_path(device, td)
+    for name, o in out.items():
+        r = o["result"]
+        if "losses" in r:
+            what = f"loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} over {len(r['losses'])} steps"
+        elif name == "serve_decode":
+            what = (f"trials {[(t['max_batch'], round(t['tokens_per_s'], 1)) for t in r['trials']]}"
+                    f" (max_batch, host tokens/s); best {r['best_config']}; prefills + captures "
+                    f"{sum(t['prefills'] + t['prefill_captures'] for t in r['trials'])}")
+        elif name == "autotune_kernels":
+            what = (f"default {r['default_us']:.1f} us -> tuned {r['tuned_us']:.1f} us at "
+                    f"{r['settings']}; the daemon's report after {r['report']['evaluations']} "
+                    f"evaluations; daemon exit code {r['agent_exitcode']}")
+        else:
+            what = (f"resume measured {r['resume_measure_calls']}; {r['warm_evals']} evaluations "
+                    f"warm against {r['cold_evals']} cold to within 10% of {r['target']:.0f} "
+                    f"collisions")
+        print(f"examples: {name}: {what}; wall {o['wall_s']:.1f} s, launches {o['launches']} "
+              f"({card})")
+    print(f"examples: phase wall {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2779,37 +3226,33 @@ def _grad_errs(out, want_out, got, want, names, tol: float) -> dict:
 
 
 # ---------------------------------------------------------------------- fault
-def phase_fault(card: str) -> dict:
-    """The fault-tolerance twin on the card through the runner, in a child
-    process of this one (its own children are fresh interpreters on the
-    card): kill → resume bit-identical, a killed campaign that re-measures
-    nothing, the torn-checkpoint fallback and the async-vs-blocking verdict;
-    then ``check_fault_tolerance`` here on its JSON.  The full twin, not the
-    quick one: with the quick twin's 6 samples a side the permutation test's
-    p is 0.010-0.017 even when every async sample is below every blocking
-    one, so a single slow async save on the card's shared disk turns the
-    verdict to ``noise``; 10 a side leave room for one."""
-    import os
-    import tempfile
+def start_fault() -> Background:
+    """``python -m repro_torch.bench.runner --only fault_tolerance`` on the
+    card, in the background: its children are fresh interpreters of reduced
+    OLMo-1B that mostly wait on their imports, and the train-ssm,
+    train-grad, agent and optimizer phases run beside them.  The full twin,
+    not the quick one: with the quick twin's 6 samples a side the
+    permutation test's p is 0.010-0.017 even when every async sample is
+    below every blocking one, so a single slow async save on the card's
+    shared disk turns the verdict to ``noise``; 10 a side leave room for
+    one."""
+    return start_twin("fault_tolerance", quick=False, timeout=600.0)
 
+
+def phase_fault(twin, card: str) -> dict:
+    """The fault-tolerance twin on the card, read where it ends (its
+    children are fresh interpreters on the card): kill → resume
+    bit-identical, a killed campaign that re-measures nothing, the
+    torn-checkpoint fallback and the async-vs-blocking verdict; then
+    ``check_fault_tolerance`` here on its JSON."""
     from repro_torch.bench import check
 
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fault_") as td:
-        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-               "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.bench.runner", "--only", "fault_tolerance",
-             "--out-dir", td, "--trajectory", str(Path(td) / "traj.jsonl")],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        for line in proc.stdout.splitlines():
-            if line.strip():
-                print(f"fault: {line}")
-        if proc.returncode != 0:
-            raise AssertionError(f"the fault-tolerance runner exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-4000:]}")
-        check.check_fault_tolerance(expect_quick=False, bench_dir=td)
-        res = json.loads((Path(td) / "fault_tolerance.json").read_text())
+    try:
+        waited = twin.finish("fault")
+        check.check_fault_tolerance(expect_quick=False, bench_dir=twin.dir)
+        res = json.loads((twin.dir / "fault_tolerance.json").read_text())
+    finally:
+        twin.stop()
     if res["device"] != "cuda" or res["device_name"] != torch.cuda.get_device_name(0):
         raise AssertionError(f"the twin ran on {res['device']} {res['device_name']}")
     tr, v = res["train"], res["ckpt_overhead"]["verdict"]
@@ -2819,7 +3262,8 @@ def phase_fault(card: str) -> dict:
           f"async blocked ms median {np.median(res['ckpt_overhead']['async_blocked_ms']):.2f} vs "
           f"blocking {np.median(res['ckpt_overhead']['blocking_blocked_ms']):.2f} "
           f"({v['verdict']}, p={v['p_value']}) ({card})")
-    print(f"fault: phase wall {time.perf_counter() - t0:.1f} s")
+    print(f"fault: ran {time.perf_counter() - twin.t0:.1f} s beside the train-ssm, train-grad, "
+          f"agent and optimizer phases; waited {waited:.1f} s for it at its end")
     return res
 
 
@@ -3178,9 +3622,15 @@ def main() -> int:
     _memory("serve-bench", t_start)
     paths["serving-grid"] = phase_serving_grid(device, card)
     _memory("serving-grid", t_start)
-    for step in ("eager", "graph"):
-        phase_profile(device, serves["olmo-1b"], card, step)
-        phase_profile(device, serves["mamba2-780m"], card, step)
+    phase_figures(device, card)
+    _memory("figures", t_start)
+    for name, out in phase_examples(device, card).items():
+        paths[name] = out
+    _memory("examples", t_start)
+    # the graph profiles only (PERF.md section 5 reads them); the eager ones
+    # are cut to keep the script inside its time
+    phase_profile(device, serves["olmo-1b"], card, "graph")
+    phase_profile(device, serves["mamba2-780m"], card, "graph")
     _memory("profile", t_start)
 
     # the serving paths' servers, weights and graph pools go before training
@@ -3190,6 +3640,7 @@ def main() -> int:
     del serves, paths, graphs, campaign
     _release()
     _memory("serving released", t_start)
+    cold_warm = start_cold_warm()
     # one MoE model's weights at a time: drawing a stacked leaf takes twice
     # its float32 size for a moment (Mixtral's wi_gate at 4 layers: 26 GB)
     moe_runs = {"serve-moe": dict(name="olmoe-1b-7b"),
@@ -3233,9 +3684,14 @@ def main() -> int:
     path_launches["train-encdec"] = phase_train_encdec(device, card)["launches"]
     _release()
     _memory("train-encdec", t_start)
+    path_launches["cold-warm"] = phase_cold_warm(cold_warm, card)["path_launches"]
+    _memory("cold-warm", t_start)
     path_launches["train"] = phase_train(device, card, continued=True)["launches"]
     phase_train_profile(device, card)
     _memory("train", t_start)
+    path_launches["training-grid"] = phase_training_grid(device, card)["launches"]
+    _memory("training-grid", t_start)
+    fault = start_fault()
     path_launches["train-ssm"] = phase_train(device, card, "mamba2-780m", batch=4, seq=1024,
                                              steps=1, resume_to=2, ckpt_every=1,
                                              label="train-ssm")["launches"]
@@ -3244,11 +3700,12 @@ def main() -> int:
     step_grad = phase_train_step_grad(device, card,
                                       eps=grad_errs[("attention", torch.float32)]["out"])
     _memory("train-grad", t_start)
-    phase_fault(card)
     path_launches["agent"] = phase_agent(device, card)["launches"]
     _memory("agent", t_start)
     path_launches["optimizer-grid"] = phase_optimizer(device, card)["launches"]
     _memory("optimizer", t_start)
+    phase_fault(fault, card)
+    _memory("fault", t_start)
 
     def launches(kernel_name):
         by_path = {name: n[kernel_name] for name, n in path_launches.items()
@@ -3297,4 +3754,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_background()
+    sys.exit(rc)

@@ -2,9 +2,12 @@
 ``benchmarks/serve_scenarios.py``, ``benchmarks/online_tuning.py``,
 ``benchmarks/kernel_autotune.py``, ``benchmarks/configstore_roundtrip.py``,
 ``benchmarks/fault_tolerance.py``, ``benchmarks/optimizer_throughput.py``,
-``benchmarks/campaign_sweep.py`` and ``benchmarks/multi_instance.py``,
-their runner with its regression gate (:mod:`.runner`) and their smoke
-checks (:mod:`.check`).  Everything they write goes under :data:`BENCH_ROOT`, the
+``benchmarks/campaign_sweep.py``, ``benchmarks/multi_instance.py`` and
+the cold/warm half of ``benchmarks/compile_cold_warm.py``, their runner
+with its regression gate (:mod:`.runner`) and their smoke checks
+(:mod:`.check`); the paper's Figures 3–5 (:mod:`.fig3_hashtable`,
+:mod:`.fig4_counters`, :mod:`.fig5_spinlock`) and their suite
+(:mod:`.run`).  Everything they write goes under :data:`BENCH_ROOT`, the
 repository's ``results/torch/bench/``, never into the reference's
 ``results/bench/``.
 """
@@ -20,10 +23,10 @@ BENCH_ROOT = Path(__file__).resolve().parents[3] / "results" / "torch" / "bench"
 
 def require_device(device: Union[str, torch.device]) -> torch.device:
     """``device``, or a RuntimeError when it is CUDA and no card is there:
-    a benchmark never falls back to the CPU."""
+    a benchmark or an example never falls back to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("a benchmark on the card found no CUDA device; "
+        raise RuntimeError("a run on the card found no CUDA device; "
                            "pass device='cpu' to run it on the CPU")
     return device
 

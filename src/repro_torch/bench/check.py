@@ -3,12 +3,14 @@
 The port of ``benchmarks/check_bench.py``'s ``check_serve_scenarios``,
 ``check_online_tuning``, ``check_kernel_autotune``,
 ``check_configstore_resolve``, ``check_fault_tolerance``,
-``check_optimizer_throughput``, ``check_campaign_sweep`` and
-``check_multi_instance``, reading the JSON each twin writes
-(``serve_scenarios.json``, ``online_tuning.json``, ``kernel_autotune.json``,
-``configstore_resolve.json``, ``fault_tolerance.json``,
-``optimizer_throughput.json``, ``campaign_sweep.json``,
-``multi_instance.json``) from a bench directory (by default
+``check_optimizer_throughput``, ``check_campaign_sweep``,
+``check_multi_instance`` and ``check_compile_cold_warm`` (without its
+``xla_runtime`` block, which the port does not have), reading the JSON each
+twin writes (``serve_scenarios.json``, ``online_tuning.json``,
+``kernel_autotune.json``, ``configstore_resolve.json``,
+``fault_tolerance.json``, ``optimizer_throughput.json``,
+``campaign_sweep.json``, ``multi_instance.json``,
+``compile_cold_warm.json``) from a bench directory (by default
 :data:`~repro_torch.bench.BENCH_ROOT`).  Each check is filed under the name
 of the twin that writes its JSON; the runner calls it after that twin, and
 a failing assertion points at a line here.
@@ -168,6 +170,20 @@ def check_multi_instance(expect_quick: Optional[bool] = None,
                                   f"than baseline {row['baseline_best']}"))
 
 
+def check_compile_cold_warm(expect_quick: Optional[bool] = None,
+                            bench_dir: Any = BENCH_ROOT) -> None:
+    """At least six fresh interpreters a side, every first step timed, the
+    warm side faster (a ``stats.compare`` verdict), and the step registry
+    built the step in the child (a miss)."""
+    d = _load("compile_cold_warm", expect_quick, bench_dir)
+    _expect(len(d["cold_s"]) >= 6 and len(d["warm_s"]) >= 6, "too few samples")
+    _expect(all(s > 0 for s in d["cold_s"] + d["warm_s"]), d)
+    v = d["verdict"]
+    _expect(v["verdict"] == "improved", f"a warm restart did not beat a cold build: {v}")
+    _expect(v["candidate_location"] < v["baseline_location"], v)
+    _expect(d["counters"]["misses"] >= 1, d["counters"])
+
+
 CHECKS = {
     "serve_scenarios": check_serve_scenarios,
     "online_tuning": check_online_tuning,
@@ -177,6 +193,7 @@ CHECKS = {
     "optimizer_throughput": check_optimizer_throughput,
     "campaign_sweep": check_campaign_sweep,
     "multi_instance": check_multi_instance,
+    "compile_cold_warm": check_compile_cold_warm,
 }
 
 

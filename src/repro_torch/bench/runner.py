@@ -3,7 +3,7 @@
 The port of ``benchmarks/runner.py`` over the port's twins only
 (``serve_scenarios``, ``online_tuning``, ``kernel_autotune``,
 ``configstore_roundtrip``, ``fault_tolerance``, ``optimizer_throughput``,
-``campaign_sweep``, ``multi_instance``).  Every
+``campaign_sweep``, ``multi_instance``, ``compile_cold_warm``).  Every
 registered benchmark exposes ``bench(quick, seed, device=, out_dir=) ->
 [BenchRecord]``; the runner runs them, checks each twin's JSON
 (:mod:`.check`), gates each record against its stored context-keyed
@@ -92,6 +92,12 @@ def _campaign_sweep(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
 @register("multi_instance")
 def _multi_instance(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
     from . import multi_instance as m
+    return m.bench(quick=quick, seed=seed, **kw)
+
+
+@register("compile_cold_warm")
+def _compile_cold_warm(quick: bool, seed: int, **kw: Any) -> List[BenchRecord]:
+    from . import compile_cold_warm as m
     return m.bench(quick=quick, seed=seed, **kw)
 
 

@@ -220,6 +220,32 @@ class AgentCore:
         self._pending_cfg = None
         return "ask", None
 
+    def ask(self) -> Dict[str, Any]:
+        """The configuration to run next (the best once the budget is spent),
+        for a driver that observes values directly."""
+        if self._pending_cfg is None and not self.done:
+            self._pending_cfg = self.opt.ask()
+        return dict(self._pending_cfg or (self.opt.best.config if self.opt.best else {}))
+
+    def observe_value(self, config: Dict[str, Any], value: float) -> Dict[str, Any]:
+        """Direct observation (bypasses the packed-telemetry protocol): tell
+        ``value`` for ``config``; returns the next configuration to run."""
+        if self.done:
+            return self.ask()
+        v = -float(value) if self.session.mode == "max" else float(value)
+        self.opt.tell(config, v)
+        self.evaluations += 1
+        if self.evaluations >= self.session.budget:
+            self.done = True
+            self._pending_cfg = None
+            return dict(self.opt.best.config)
+        self._pending_cfg = self.opt.ask()
+        return dict(self._pending_cfg)
+
+    @property
+    def best(self):
+        return self.opt.best
+
     def resolve_ask(self, cfg: Dict[str, Any]) -> bytes:
         """Install a proposed config as the pending one and emit its
         config-update command."""

@@ -10,6 +10,9 @@ a hash of the source, the flags and ``nvcc --version``, so an edited
 source or another compiler rebuilds and an unchanged one is reused.  All
 missing libraries of one call compile in parallel, one ``nvcc`` per
 source.  :func:`load` opens a built library with ``ctypes``.
+:func:`set_root` moves the cache of this process to another root (a
+fresh interpreter of the cold/warm benchmark builds into a root of its
+own, so it never reads or writes the shared one).
 
 Nothing here runs at import: this module is imported on machines with no
 CUDA toolkit, where only the kernels' plain versions run.
@@ -24,11 +27,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Any, Dict, Sequence
 
 from ..core.compilecache import persistent_cache_dir
 
-__all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "build_dir", "library_path", "build", "load"]
+__all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "build_dir", "set_root", "library_path", "build",
+           "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -36,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_root: Path = BUILD_ROOT
 
 
 def _nvcc() -> str:
@@ -53,9 +58,18 @@ def nvcc_version() -> str:
 
 
 def build_dir() -> Path:
-    """``build/kernels/<hw>/<sw>``: libraries built under other hardware or
-    software coordinates are never loaded."""
-    return persistent_cache_dir(BUILD_ROOT)
+    """``<root>/<hw>/<sw>``, the root :data:`BUILD_ROOT` (``build/kernels``)
+    unless :func:`set_root` gave another: libraries built under other
+    hardware or software coordinates are never loaded."""
+    return persistent_cache_dir(_root)
+
+
+def set_root(root: Any) -> Path:
+    """Build into and load from ``root`` from now on in this process;
+    returns the previous root.  Libraries already loaded stay loaded."""
+    global _root
+    old, _root = _root, Path(root)
+    return old
 
 
 def library_path(name: str) -> Path:

@@ -184,7 +184,8 @@ def test_runner_cli_lists_the_twins_and_check_rejects_a_bad_record(tmp_path, cap
     assert capsys.readouterr().out.split() == ["serve_scenarios", "online_tuning",
                                                "kernel_autotune", "configstore_roundtrip",
                                                "fault_tolerance", "optimizer_throughput",
-                                               "campaign_sweep", "multi_instance"]
+                                               "campaign_sweep", "multi_instance",
+                                               "compile_cold_warm"]
     bad = {"quick": True, "scenarios": {"heavy_tail": {
         mode: {"tokens_per_s": [1.0, 2.0], "p99_latency_s": [0.1, 0.1], "total_tokens": t}
         for mode, t in (("gang", 10.0), ("continuous", 11.0))}},

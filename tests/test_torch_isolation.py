@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=env, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(_modules()) >= 55
+    assert len(_modules()) >= 66
 
 
 def test_the_ssm_slice_is_covered():
@@ -102,6 +102,33 @@ def test_the_captured_programs_slice_is_covered():
     # no environment switch in the registry or the build cache
     for rel in ("core/compilecache.py", "kernels/build.py", "runtime/serve_loop.py"):
         assert "os.environ" not in (PORT / rel).read_text() and "getenv" not in (PORT / rel).read_text(), rel
+
+
+def test_the_figures_examples_and_cold_warm_slice_is_covered():
+    """The paper's figures, their suite, the cold/warm twin and the five
+    examples are among what the checks here walk; the twin hands its
+    children their kernel roots as arguments, never through the
+    environment."""
+    new = {"repro_torch.bench.fig3_hashtable", "repro_torch.bench.fig4_counters",
+           "repro_torch.bench.fig5_spinlock", "repro_torch.bench.run",
+           "repro_torch.bench.compile_cold_warm", "repro_torch.examples",
+           "repro_torch.examples.quickstart", "repro_torch.examples.train_lm",
+           "repro_torch.examples.serve_decode", "repro_torch.examples.autotune_kernels",
+           "repro_torch.examples.campaign_quickstart"}
+    assert new <= set(_modules())
+    for name in new:
+        rel = name.split(".", 1)[1].replace(".", "/")
+        path = PORT / (f"{rel}/__init__.py" if (PORT / rel).is_dir() else f"{rel}.py")
+        assert path in SOURCES, path
+    text = (PORT / "bench" / "compile_cold_warm.py").read_text()
+    assert "--build-root" in text and "environ[" not in text and "getenv" not in text
+    import inspect
+
+    from repro_torch.bench import compile_cold_warm, fig3_hashtable, fig5_spinlock, run
+
+    for fn in (fig3_hashtable.run, fig5_spinlock.run, compile_cold_warm.run,
+               compile_cold_warm.bench, run.suite):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
 
 
 def test_the_tensor_core_attention_is_covered():
@@ -483,6 +510,20 @@ def test_chip_smoke_checks_every_attention_shape_its_serving_phases_run(chip_smo
                for b, sq, sk, _, _, _, w, o in seen}
     assert {b for b, *_ in seen} == {twin.MAX_BATCH, 1}       # gang and continuous prefills
     assert widened <= checked, sorted(widened - checked)
+    # the examples phase (reduced configs on the card as here; quickstart trains
+    # train_lm's smoke shape) and the cold/warm twin's child (its first train
+    # step); a step count does not change a shape
+    from repro_torch.bench import compile_cold_warm
+    from repro_torch.examples import serve_decode, train_lm
+    from repro_torch.kernels import build
+
+    seen.clear()
+    monkeypatch.setattr(build, "_root", build._root)     # the child sets the kernel root
+    train_lm.main(["--device", "cpu", "--steps", "1", "--ckpt-dir", str(tmp_path / "lm")])
+    serve_decode.main(["--device", "cpu"])
+    compile_cold_warm.child_main(str(tmp_path / "root"), "cpu")
+    assert {b for b, *_ in seen} == {8, 4, 1}       # train_lm / quickstart, the child, serving
+    assert set(seen) <= checked, sorted(set(seen) - checked)
 
 
 def test_chip_smoke_train_paths_on_cpu(chip_smoke, tmp_path):
