@@ -29,8 +29,12 @@ Phases, in order; any failure exits non-zero before the result lines:
                      over 512 frames, llama-3.2-vision-11b's causal GQA
                      32->8 and cross-attention over 1601 modal tokens, at
                      every prompt width, the train-encdec shapes and the
-                     reduced pair's; reduced OLMo-1B's shapes in the examples,
-                     the cold/warm children and the training grid, and the
+                     reduced pair's; StarCoder2-15B's windowed GQA 48->4
+                     prefills at every width serve-dense-window gives
+                     (2...1024 and 8192, past its 4096 window, a block of
+                     2048 query rows at a time); reduced OLMo-1B's shapes
+                     in the examples, the cold/warm children and the
+                     training grid, and the
                      autotune example's B2 S512 H8 K4 D64 at every compiled
                      tile pair; each case carries its causal flag; GQA,
                      window, q_offset, non-pow2; the campaign grid's four shapes
@@ -81,14 +85,15 @@ Phases, in order; any failure exits non-zero before the result lines:
                      card runs them back to back); beside the card's bound
                      for the work.  Flash attention at OLMo-1B's and
                      hymba-1.5b's widest prefill and the grid's four shapes;
+                     StarCoder2-15B's widest prefill (B1 S8192 H48 K4 D128,
+                     window 4096) beside SDPA with the window's band as
+                     its mask and the plain version 2048 query rows a call;
                      the SSD scan (bf16) at mamba2-780m's and hymba-1.5b's
                      widest prefill and the grid's two shapes, and the
                      float32 FMA kernel at mamba2-780m's.
-  9. profile       — the OLMo-1B and mamba2-780m serves again on a warm
-                     server on CUDA graphs: tokens/s and p50, then under
-                     torch.profiler (device activity only) the device's
-                     busy share and top kernels.  (The eager profiles were
-                     cut to keep the script inside its time.)
+  9. (profile: cut to keep the script inside its time; every graphs phase
+                     prints the graphed step's busy share and costliest
+                     kernels)
  10. campaign      — the MLOS loop on the card: the full ``kernels`` grid
                      (8 cells over the three kernels, bo, budget 6) through
                      ``repro_torch.launch.campaign`` into a temporary store
@@ -308,14 +313,51 @@ Phases, in order; any failure exits non-zero before the result lines:
                      Function's plain backward); ms by events, MFU reading,
                      peak memory.
 
-Phases 11-13b and 13d run after the campaign phase, before the profiles;
-phases 20-24 and 26-29 after the profiles, once the serving phases'
-servers, weights and graph pools are released (one model's weights at a
-time), then 25 and 30; phases 14-19 after those, once theirs are released
-too.  Two twins whose children are fresh interpreters run in the
+ 31. serve-dense-window — StarCoder2-15B at full size (40 layers, d 6144, GQA
+                     48->4, head dim 128, GELU MLP with biases, LayerNorm
+                     with a bias, window 4096; 15.958 B params, bf16, seed-0
+                     weights) served as in the serve phase at capacity 16384
+                     (a prompt of 4097...8192 tokens prefills at width 8192
+                     past the window and the ring buffers wrap), max_batch
+                     8, a prompt at every pow2 width 2...1024 and one at
+                     8192; launches (prefill executions + captures) x 40.
+ 32. graphs-dense-window — StarCoder2-15B again eager and graphed: identical
+                     streams required; decode step ms by events, host wall,
+                     busy ms, idle share, the costliest kernels.
+ 33. dryrun-check — the dry-run against the card, on the reference cells
+                     that fit one H100: starcoder2-15b, mamba2-780m and
+                     hymba-1.5b at long_500k (batch 1, context 524288).
+                     Each cell's dry-run record on ``one`` (meta traces,
+                     ``repro_torch.launch.dryrun.run_cell``) is printed;
+                     then its params and caches at full size and one decode
+                     step at position 524287, eager (the peak allocated
+                     over the cell's own allocations must be within 10% of
+                     the record's ``per_device_bytes``), then captured in a
+                     CUDA graph and replayed between events (no step may
+                     beat 0.95 x its ``step_time_bound_s``).  The ``HW``
+                     table of ``launch/mesh.py`` must name this card (name,
+                     fingerprint, memory).
+ 34. dryrun       — ``python -m repro_torch.launch.dryrun --mesh one`` on
+                     every arch (all 40 cells in three interpreters side by
+                     side; host only: the card is hidden from it),
+                     the roofline table (``launch.roofline``), then
+                     ``launch.perf``'s hillclimb of olmo-1b/train_4k
+                     (patience 3, each experiment a fresh dry-run
+                     interpreter) into a temporary directory and store;
+                     started in the background after the build, read after
+                     17: no cell in error, a skip exactly where
+                     ``cell_status`` skips, every persisted winner filed
+                     under the card's fingerprint.
+
+Phases 11-13b and 13d run after the campaign phase; phases 20-24, 26-29
+and 31-33 after those, once the serving
+phases' servers, weights and graph pools are released (one model's weights
+at a time), then 25 and 30; phases 14-19 after those, once theirs are
+released too.  Two twins whose children are fresh interpreters run in the
 background, each in a process group of its own that the script kills if it
-fails: 13c beside 20-30, 17 beside 15-19 (the train phase and its profile
-run alone).  A
+fails: 13c beside 20-33, 17 beside 15-19 (the train phase and its profile
+run alone); the dry-run sweep (34, host work) runs beside everything from
+3 on.  A
 server hands its graphs and buffers over to the next server of its params
 and context (``repro_torch.core.compilecache``): every release point drops
 what is still handed over.  The script
@@ -345,11 +387,17 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak, FLOP/s
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3, bytes/s
+if str(ROOT / "src") not in sys.path:
+    sys.path.insert(0, str(ROOT / "src"))
+# the card's peaks and each kernel's work formula live in the port (launch/)
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.mesh import HW  # noqa: E402
+
+PEAK_BF16_FLOPS = HW["peak_flops_bf16"]     # H100 SXM dense bf16 tensor-core peak, FLOP/s
+PEAK_BYTES = HW["hbm_bw"]                   # H100 SXM HBM3, bytes/s
 TOL = {torch.bfloat16: 5.0 * 2.0 ** -8,                      # inputs rounded, f32 accumulation
        torch.float32: 170.0 * float(np.finfo(np.float32).eps)}  # rounding inside the reductions
-PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s
+PEAK_F32_FLOPS = HW["peak_flops_f32"]       # H100 SXM float32 outside the tensor cores, FLOP/s
 SSD_HEADROOM = 4.0           # tests/test_kernels.py: the scan's chunk hand-offs
 SSD_STATE_TOL = 1e-3         # float32 final state, absolute and relative
 SEED = 17
@@ -361,6 +409,19 @@ MOE_WINDOW_CAPACITY = 16384
 MOE_WINDOW_LAYERS = 4
 # (batch, seq_q, seq_k, heads, kv_heads, head_dim, window, q_offset, causal)
 SERVE_WIDTHS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+# serve-dense-window: StarCoder2-15B at full size, a prompt at every pow2
+# width and one of 4097-8192 tokens, which prefills at 8192 past its 4096
+# window (capacity 16384: the server keeps capacity // 2 prompt tokens)
+DENSE_WINDOW_NAME = "starcoder2-15b"
+DENSE_WINDOW_WIDTHS = [*SERVE_WIDTHS, 8192]
+DENSE_WINDOW_CAPACITY = 16384
+# dryrun-check: the reference's cells that fit one card, a decode step at
+# the last position of a 524288-token context
+DRYRUN_CHECK_ARCHS = ("starcoder2-15b", "mamba2-780m", "hymba-1.5b")
+DRYRUN_CHECK_SHAPE = "long_500k"
+DRYRUN_MEMORY_RTOL = 0.10    # measured peak against the dry-run's per_device_bytes
+DRYRUN_TIME_FLOOR = 0.95     # no step faster than this share of its roofline bound
+DRYRUN_HILLCLIMB = ("olmo-1b", "train_4k", 3)    # arch, shape, patience
 XATTN_CAPACITY = 2048        # serve-encdec / serve-vlm: the encdec source is capacity // 4 = 512
 XATTN_MODAL = {"seamless-m4t-medium": 512, "llama-3.2-vision-11b": 1601}
 XATTN_REDUCED_MODAL = 12     # model-xattn: reduced seamless' frames (the VLM's: its own 8)
@@ -377,6 +438,8 @@ ATTN_CASES = [
     # (OLMoE-1B-7B's prefills are OLMo-1B's shapes: H16 K16 D128, QK-normed q and k)
     # Mixtral-8x22B prefills (serve-moe-window): GQA 48->8, window 4096
     *((1, w, w, 48, 8, 128, 4096, 0, True) for w in MOE_WINDOW_WIDTHS),
+    # StarCoder2-15B prefills (serve-dense-window): GQA 48->4, head dim 128, window 4096
+    *((1, w, w, 48, 4, 128, 4096, 0, True) for w in DENSE_WINDOW_WIDTHS),
     # reduced Mixtral-8x22B prefills (model-moe): GQA 4->2, head_dim 16, window 16
     *((1, w, w, 4, 2, 16, 16, 0, True) for w in (2, 4, 8, 16, 32)),
     # seamless-m4t-medium (serve-encdec): the encoder's non-causal 512 x 512 over the
@@ -1028,11 +1091,12 @@ class Background:
     removes ``workdir``; :func:`stop_background` stops every one still
     open."""
 
-    def __init__(self, argv: list, workdir: Path, *, timeout: float):
+    def __init__(self, argv: list, workdir: Path, *, timeout: float,
+                 env: Optional[dict] = None):
         self.dir, self.timeout = Path(workdir), timeout
         self.what = " ".join(str(a) for a in argv[1:])
         env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-               "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+               "CUBLAS_WORKSPACE_CONFIG": ":4096:8", **(env or {})}
         self.t0 = time.perf_counter()
         with open(self.dir / "out.log", "w") as out, open(self.dir / "err.log", "w") as err:
             self.proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out, stderr=err,
@@ -1312,44 +1376,6 @@ def _device_profile(fn, host: bool = True) -> Optional[tuple]:
     return _busy_us(spans), window, len(kernels), by_name
 
 
-def phase_profile(device, serve: dict, card: str, step: str, top: int = 8) -> None:
-    """A main path's requests again on a warm server of the given ``step``
-    path: one replay plain (warm tokens/s and p50; the first run paid cuBLAS
-    and allocator set-up, and a graph server its captures), one more on the
-    same server under torch.profiler for the device's busy share and the
-    kernels that take its time."""
-    from repro_torch.runtime import serve_loop, traffic
-
-    cfg = serve["cfg"]
-    tag = f"profile {cfg.name} step={step}"
-    srv = serve_loop.BatchedServer(serve["params"], cfg, capacity=2048, eos_id=-1,
-                                   settings={"max_batch": 8}, device=device, step=step)
-
-    def serve_once():
-        m = traffic.replay(srv, serve["arrivals"])
-        torch.cuda.synchronize()
-        return m
-
-    serve_once()
-    m = serve_once()
-    print(f"{tag}: warm rerun tokens_per_s {m['tokens_per_s']:.2f}, "
-          f"p50_latency_s {m['p50_latency_s']:.4f} ({card})")
-    found = _device_profile(serve_once, host=False)
-    if found is None:
-        print(f"{tag}: the profiler recorded no device activity")
-        return
-    busy, window, n_ops, by_name = found
-    total = sum(by_name.values())
-    print(f"{tag}: device busy {busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms window "
-          f"(idle share {1 - busy / window:.3f}, device activity only), {n_ops} device ops")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"{tag}: {us / total:6.3f} of device time, {us / 1e3:8.2f} ms  {name[:90]}")
-    for kernel, markers in PORT_KERNELS.items():
-        us = sum(t for name, t in by_name.items() if any(m in name for m in markers))
-        print(f"{tag}: the port's {kernel} kernel: {us / total:.4f} of device time, "
-              f"{us / 1e3:.2f} ms")
-
-
 # ------------------------------------------------------------------- timing
 def _time_ms(fn, reps: int = 20) -> float:
     fn()
@@ -1404,13 +1430,11 @@ def _both_ms(fn, *tensors, reps: int = 20) -> tuple:
 
 
 def attention_bound_ms(b: int, s: int, h: int, kh: int, d: int, elem_bytes: int,
-                       peak_flops: float) -> tuple:
-    """Least time for causal attention at these shapes: q, k, v read once and
-    o written once, against 4·d FLOPs per unmasked (q, k) pair."""
-    bytes_moved = elem_bytes * d * (2 * b * s * h + 2 * b * s * kh)
-    flops = 4.0 * d * b * h * s * (s + 1) / 2
-    t_bytes, t_flops = bytes_moved / PEAK_BYTES, flops / peak_flops
-    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+                       peak_flops: float, window: int = 0) -> tuple:
+    """Least time for causal attention at these shapes
+    (:func:`repro_torch.launch.roofline.attention_work`)."""
+    return roofline.bound_ms(*roofline.attention_work(b, s, h, kh, d, elem_bytes, window),
+                             peak_flops)
 
 
 # name: (batch, seq, heads, kv_heads, head_dim, window), bf16, causal; every
@@ -1423,52 +1447,65 @@ ATTN_TIMED = {
 }
 
 
+# name: as ATTN_TIMED, each window narrower than its sequence: SDPA takes the
+# window's causal band as an explicit mask, the plain version runs a block of
+# 2048 query rows at a time (its f32 scores at once would be 12.9 GB)
+ATTN_TIMED_WINDOW = {"starcoder2-15b prefill": (1, 8192, 48, 4, 128, 4096)}
+
+
+def _window_mask(s: int, window: int, device) -> torch.Tensor:
+    """(S, S) bool: key j is visible to query i iff j <= i and i - j < window."""
+    i = torch.arange(s, device=device)
+    return (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+
+
 def phase_timing(device) -> dict:
     """Flash attention at the default tiles, its plain version and SDPA at
-    each ATTN_TIMED shape, on both yardsticks; the first shape is the
-    kernel's headline row."""
+    each ATTN_TIMED and ATTN_TIMED_WINDOW shape, on both yardsticks; the
+    first shape is the kernel's headline row."""
     kernel, ref = _import_port()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     n0 = kernel.flash_attention.launches
     rows = {}
-    for name, (b, s, h, kh, d, window) in ATTN_TIMED.items():
+    timed = [(name, case, False) for name, case in ATTN_TIMED.items()]
+    timed += [(name, case, True) for name, case in ATTN_TIMED_WINDOW.items()]
+    for name, (b, s, h, kh, d, window), banded in timed:
         q, k, v = _qkv((b, s, s, h, kh, d, window, 0), torch.bfloat16, device, seed=7)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms, ms_dev = _both_ms(lambda *t: kernel.flash_attention(*t, causal=True, window=window),
                               q, k, v)
-        plain, plain_dev = _both_ms(lambda *t: ref.naive_attention(*t, causal=True, window=window),
-                                    q, k, v)
-        lib, lib_dev = _both_ms(lambda *t: sdpa(*t, is_causal=True, enable_gqa=h != kh),
-                                qt, kt, vt)
-        bound_ms, bound_by = attention_bound_ms(b, s, h, kh, d, 2, PEAK_BF16_FLOPS)
+        if banded:
+            mask = _window_mask(s, window, device)
+            plain, plain_dev = _both_ms(lambda *t: _plain_attention(ref, *t, window, 0), q, k, v)
+            lib, lib_dev = _both_ms(lambda *t: sdpa(*t, attn_mask=mask, enable_gqa=h != kh),
+                                    qt, kt, vt)
+        else:
+            plain, plain_dev = _both_ms(
+                lambda *t: ref.naive_attention(*t, causal=True, window=window), q, k, v)
+            lib, lib_dev = _both_ms(lambda *t: sdpa(*t, is_causal=True, enable_gqa=h != kh),
+                                    qt, kt, vt)
+        bound_ms, bound_by = attention_bound_ms(b, s, h, kh, d, 2, PEAK_BF16_FLOPS,
+                                                window if banded else 0)
         rows[name] = {"shape": f"bf16 B{b} S{s} H{h} K{kh} D{d} causal"
                       + (f" window {window}" if window else ""),
                       "ms": ms, "ms_device": ms_dev, "plain_ms": plain,
                       "plain_ms_device": plain_dev, "library_ms": lib,
                       "library_ms_device": lib_dev, "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"timing: flash_attention {rows[name]['shape']} ({name}), events / device-held: "
-              f"kernel {ms:.4f} / {ms_dev:.4f} ms, plain {plain:.4f} / {plain_dev:.4f} ms, "
-              f"SDPA {lib:.4f} / {lib_dev:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+              f"kernel {ms:.4f} / {ms_dev:.4f} ms, plain {plain:.4f} / {plain_dev:.4f} ms"
+              f"{' (2048 query rows a call)' if banded else ''}, SDPA"
+              f"{' with the window mask' if banded else ''} {lib:.4f} / {lib_dev:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
     kernel.flash_attention.launches = n0     # timing launches are not the main path's
     return {**rows["olmo-1b prefill"], "shapes": rows}
 
 
 def ssd_bound_ms(b: int, s: int, h: int, p: int, n: int, g: int, elem_bytes: int,
                  chunk: int, peak_flops: float) -> tuple:
-    """Least time for the SSD forward at these shapes: x, B, C, dt, A, D read
-    once, y and the f32 final state written once, against the chunked
-    algorithm's FLOPs at ``chunk``: the causal half of C·Bᵀ once per group
-    (every head of a group shares it), and per head the causal half of the
-    intra-chunk product and the inter-chunk and state products."""
-    bytes_moved = (elem_bytes * (2 * b * s * h * p + 2 * b * s * g * n)
-                   + 4 * (b * s * h + 2 * h) + 4 * b * h * p * n)
-    flops = 0.0
-    for c0 in range(0, s, chunk):
-        q = min(chunk, s - c0)
-        pairs = q * (q + 1) / 2
-        flops += 2.0 * b * g * pairs * n + 2.0 * b * h * (pairs * p + 2 * q * n * p)
-    t_bytes, t_flops = bytes_moved / PEAK_BYTES, flops / peak_flops
-    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+    """Least time for the SSD forward at these shapes
+    (:func:`repro_torch.launch.roofline.ssd_work`)."""
+    return roofline.bound_ms(*roofline.ssd_work(b, s, h, p, n, g, elem_bytes, chunk),
+                             peak_flops)
 
 
 # name: (batch, seq, heads, head_dim, state, groups), bf16, chunk 64
@@ -1536,15 +1573,10 @@ def phase_timing_ssd(device) -> dict:
 
 def rmsnorm_bound_ms(rows: int, d: int, elem_bytes: int, scale_bytes: int,
                      residual: bool) -> tuple:
-    """Least time for RMSNorm at these shapes: x (and the residual) read
-    once, the scale read once, y written once, against 4 FLOPs per element
-    (square and add, the two multiplies; 5 with the residual's add) at the
-    card's float32 rate."""
-    n = rows * d
-    bytes_moved = elem_bytes * n * (3 if residual else 2) + scale_bytes * d
-    flops = (5.0 if residual else 4.0) * n
-    t_bytes, t_flops = bytes_moved / PEAK_BYTES, flops / PEAK_F32_FLOPS
-    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+    """Least time for RMSNorm at these shapes, at the card's float32 rate
+    (:func:`repro_torch.launch.roofline.rmsnorm_work`)."""
+    return roofline.bound_ms(*roofline.rmsnorm_work(rows, d, elem_bytes, scale_bytes, residual),
+                             PEAK_F32_FLOPS)
 
 
 def phase_timing_rmsnorm(device) -> dict:
@@ -2240,6 +2272,221 @@ def phase_figures(device, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ dry-run
+def dryrun_check_path(device, arch: str, *, cfg=None, shape=None, steps: int = 20) -> dict:
+    """One dry-run cell against the card.  The dry-run's record on ``one``
+    (``repro_torch.launch.dryrun.run_cell``: meta traces, nothing allocated),
+    then the cell's params (seed 0) and caches at full size and one decode
+    step at the context's last position (``runtime.steps.make_decode_step``):
+    eagerly, with the peak of ``torch.cuda.max_memory_allocated`` over the
+    cell's own allocations (what was allocated before is subtracted), then
+    captured in a CUDA graph and replayed ``steps`` times between CUDA
+    events.  On the CPU the eager step alone runs (nothing is measured)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as rt_steps
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    cfg = cfg or get_config(arch)
+    shape = shape or shapes.SHAPES[DRYRUN_CHECK_SHAPE]
+    rec = dryrun.run_cell(arch, shape.name, "one", cfg=cfg, shape=shape)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run {arch}/{shape.name}: {rec['status']} "
+                             f"{rec.get('error', rec.get('reason', ''))}")
+    if cuda:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+    b = shape.global_batch
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    dstate = {"token": torch.zeros(b, dtype=torch.long, device=device),
+              "caches": M.init_cache(cfg, b, shape.seq_len, device=device),
+              "pos": torch.full((b,), shape.seq_len - 1, dtype=torch.long, device=device)}
+    step = rt_steps.make_decode_step(cfg)
+    out = {"record": rec}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        eager = step(params, dstate)
+    if cuda:
+        torch.cuda.synchronize()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    logits = eager["logits"]
+    if logits.shape != (b, cfg.padded_vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch}: decode logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    if cuda:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.no_grad():
+            step(params, dstate)                          # warm-up off the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(graph):
+            static = step(params, dstate)
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        out["step_ms"] = start.elapsed_time(end) / steps
+        if not torch.isfinite(static["logits"]).all():
+            raise AssertionError(f"{arch}: the graphed decode step gave non-finite logits")
+        del graph, static
+    del params, dstate, eager
+    return out
+
+
+def phase_dryrun_check(device, card: str) -> dict:
+    """:func:`dryrun_check_path` for each cell of ``DRYRUN_CHECK_ARCHS`` at
+    ``long_500k`` (batch 1, context 524288), one model's weights at a time:
+    the measured peak must be within ``DRYRUN_MEMORY_RTOL`` of the dry-run's
+    ``per_device_bytes``, and no graphed step faster than
+    ``DRYRUN_TIME_FLOOR`` x its ``step_time_bound_s`` (no card beats its
+    roofline: a faster step means the count is short); the ``HW`` table
+    must be this card."""
+    from repro_torch.core import configstore
+
+    t0 = time.perf_counter()
+    check_hw()
+    out = {}
+    for arch in DRYRUN_CHECK_ARCHS:
+        _release()
+        r = dryrun_check_path(device, arch)
+        rec = r["record"]
+        pred, got = rec["per_device_bytes"], r["peak_bytes"]
+        bound_ms = 1e3 * rec["step_time_bound_s"]
+        print(f"dryrun-check: {arch}/{DRYRUN_CHECK_SHAPE} on one: per_device_bytes "
+              f"{pred / 1e9:.4f} GB (argument {rec['memory']['argument_size_in_bytes'] / 1e9:.4f}"
+              f", temp {rec['memory']['temp_size_in_bytes'] / 1e9:.4f}), fits {rec['fits']}; "
+              f"flops {rec['counters']['flops']:.6g}, bytes {rec['counters']['bytes_accessed']:.6g}"
+              f"; compute {1e3 * rec['roofline']['compute_s']:.4f} ms, memory "
+              f"{1e3 * rec['roofline']['memory_s']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({rec['bottleneck']}), roofline_fraction {rec['roofline_fraction']:.6f}")
+        print(f"dryrun-check: {arch}: measured peak allocated {got / 1e9:.4f} GB "
+              f"({got / pred - 1:+.2%} on the dry-run), graphed decode step "
+              f"{r['step_ms']:.4f} ms by events ({r['step_ms'] / bound_ms:.3f} x its bound) "
+              f"({card})")
+        if abs(got - pred) > DRYRUN_MEMORY_RTOL * pred:
+            raise AssertionError(f"{arch}: measured peak {got} bytes is not within "
+                                 f"{DRYRUN_MEMORY_RTOL:.0%} of the dry-run's {pred:.0f}")
+        if r["step_ms"] < DRYRUN_TIME_FLOOR * bound_ms:
+            raise AssertionError(f"{arch}: a {r['step_ms']:.4f} ms step beats "
+                                 f"{DRYRUN_TIME_FLOOR} x its {bound_ms:.4f} ms bound: the "
+                                 "dry-run's count is short")
+        out[arch] = {"per_device_bytes": pred, "peak_bytes": got, "step_ms": r["step_ms"],
+                     "bound_ms": bound_ms, "bottleneck": rec["bottleneck"]}
+    _release()
+    print(f"dryrun-check: HW {HW['fingerprint']} = {configstore.hardware_fingerprint()}; phase "
+          f"wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def check_hw() -> None:
+    """The ``HW`` table names this card: its name, fingerprint and memory."""
+    from repro_torch.core import configstore
+
+    got = {"name": torch.cuda.get_device_name(0),
+           "fingerprint": configstore.hardware_fingerprint(),
+           "memory_bytes": torch.cuda.get_device_properties(0).total_memory}
+    want = {k: HW[k] for k in got}
+    if got != want:
+        raise AssertionError(f"launch/mesh.py's HW table {want} is not this card {got}")
+
+
+# the sweep's archs in three interpreters of about equal host time (traced in
+# one interpreter on the H100 machine's host: 150, 116, 75, 64, 63, 41, 27,
+# 26, 22 and 15 s in this order)
+DRYRUN_GROUPS = (("mamba2-780m", "starcoder2-15b", "command-r-35b", "olmo-1b"),
+                 ("hymba-1.5b", "deepseek-67b", "olmoe-1b-7b"),
+                 ("llama-3.2-vision-11b", "mixtral-8x22b", "seamless-m4t-medium"))
+
+
+def start_dryrun() -> Background:
+    """The dry-run sweep of every arch x shape on ``one`` (``DRYRUN_GROUPS``:
+    three interpreters side by side, an arch at a time), its roofline table,
+    then the hillclimb of ``DRYRUN_HILLCLIMB`` (each experiment a fresh
+    dry-run interpreter), into a temporary directory and config store, in
+    the background: host work only, so the card is hidden from it."""
+    import shlex
+    import tempfile
+
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    out, store = workdir / "dryrun", workdir / "store"
+    arch, shape, patience = DRYRUN_HILLCLIMB
+    py = shlex.quote(sys.executable)
+    sweep = f"{py} -m repro_torch.launch.dryrun --mesh one --out {out} --store {store}"
+    wall = 'echo "{} wall $(( $(date +%s) - s0 )) s"'.format
+    groups = " ".join(f"( for a in {' '.join(g)}; do {sweep} --arch $a || exit 1; done ) & "
+                      f"p{i}=$!;" for i, g in enumerate(DRYRUN_GROUPS))
+    waits = " && ".join(f"wait $p{i}" for i in range(len(DRYRUN_GROUPS)))
+    cmd = (f"s0=$(date +%s); {groups} {waits} && {wall('sweep')} && {py} -m "
+           f"repro_torch.launch.roofline --dir {out} --mesh one && {py} -m "
+           f"repro_torch.launch.perf --arch {arch} --shape {shape} --mesh one --patience "
+           f"{patience} --out {out} --store {store} --log {workdir / 'perf.json'} && "
+           f"{wall('sweep and hillclimb')}")
+    return Background(["sh", "-c", cmd], workdir, timeout=1100.0,
+                      env={"CUDA_VISIBLE_DEVICES": ""})
+
+
+def check_dryrun(workdir) -> dict:
+    """The sweep's records and the hillclimb's winners under ``workdir``:
+    every arch x shape on ``one`` recorded, none in error, a skip exactly
+    where ``cell_status`` skips; every entry the hillclimb persisted filed
+    under the card of ``HW``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shapes
+
+    workdir = Path(workdir)
+    recs = {}
+    for arch, shape in shapes.all_cells():
+        path = workdir / "dryrun" / f"{arch}__{shape}__one.json"
+        if not path.exists():
+            raise AssertionError(f"dry-run: no record for {arch}/{shape}")
+        rec = json.loads(path.read_text())
+        runs, _ = shapes.cell_status(get_config(arch), shapes.SHAPES[shape])
+        if rec["status"] == "error" or (rec["status"] == "skip") == runs:
+            raise AssertionError(f"dry-run {arch}/{shape}: {rec['status']} "
+                                 f"{rec.get('error', '')} (cell_status runs: {runs})")
+        recs[(arch, shape)] = rec
+    summary = json.loads((workdir / "perf.json").read_text())
+    entries = [e for p in sorted((workdir / "store").glob("*.json"))
+               for e in json.loads(p.read_text())["entries"]]
+    filed = sorted({e["context"]["hardware"] for e in entries})
+    if summary["persisted_contexts"] and filed != [HW["fingerprint"]]:
+        raise AssertionError(f"hillclimb entries filed under {filed}, not {HW['fingerprint']}")
+    if len(entries) != len(summary["persisted_contexts"]):
+        raise AssertionError(f"{len(entries)} store entries for "
+                             f"{summary['persisted_contexts']}")
+    return {"records": recs, "hillclimb": summary, "entries": entries}
+
+
+def phase_dryrun(twin, card: str) -> dict:
+    """The dry-run sweep and hillclimb started by :func:`start_dryrun`, read
+    where it ends (:func:`check_dryrun`); the table and the hillclimb's log
+    are printed with its output."""
+    try:
+        waited = twin.finish("dryrun")
+        out = check_dryrun(twin.dir)
+    finally:
+        twin.stop()
+    recs, hc = out["records"], out["hillclimb"]
+    n = {st: sum(r["status"] == st for r in recs.values()) for st in ("ok", "skip")}
+    print(f"dryrun: {len(recs)} records on one ({n['ok']} ok, {n['skip']} skip, none in error); "
+          f"{sum(r['fits'] for r in recs.values() if r['status'] == 'ok')} fit the card's "
+          f"{HW['memory_bytes'] / 2**30:.2f} GiB; hillclimb {hc['cell']}: step bound "
+          f"{1e3 * max(hc['baseline']['terms'].values()):.2f} -> "
+          f"{1e3 * max(hc['best']['terms'].values()):.2f} ms, kept {hc['best']['sets']}, "
+          f"{len(out['entries'])} entries under {HW['fingerprint']}; {waited:.1f} s waited "
+          f"here, {time.perf_counter() - twin.t0:.1f} s after its start ({card})")
+    return out
+
+
 # ---------------------------------------------------------------- cold-warm
 def start_cold_warm() -> Background:
     """``python -m repro_torch.bench.runner --quick --only compile_cold_warm``
@@ -2616,14 +2863,10 @@ MOE_CAPACITY_FACTORS = (1.0, 1.25, 2.0)
 
 def moe_bound_ms(tokens: int, d: int, f: int, n_experts: int, touched: int, assignments: int,
                  elem_bytes: int, peak_flops: float) -> tuple:
-    """Least time for a MoE layer's work on this run's routing: x read once
-    and y written once, the router and the ``touched`` experts' three
-    weights read once, against the router's product and 6·d·f FLOPs per
-    (token, expert) assignment that the layer computes."""
-    bytes_moved = elem_bytes * (2 * tokens * d + d * n_experts + 3 * touched * d * f)
-    flops = 2.0 * tokens * d * n_experts + 6.0 * assignments * d * f
-    t_bytes, t_flops = bytes_moved / PEAK_BYTES, flops / peak_flops
-    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+    """Least time for a MoE layer's work on this run's routing
+    (:func:`repro_torch.launch.roofline.moe_work`)."""
+    return roofline.bound_ms(*roofline.moe_work(tokens, d, f, n_experts, touched, assignments,
+                                                elem_bytes), peak_flops)
 
 
 def moe_dispatch_path(device, cfg, *, shapes=None, seed: int = SEED, timed: bool = True) -> dict:
@@ -3594,6 +3837,7 @@ def main() -> int:
     _import_port()
     card = phase_card()
     builds = phase_build()
+    dryrun = start_dryrun()
     errs = phase_kernels(device)
     ssd_errs = phase_kernels_ssd(device)
     rms_errs = phase_kernels_rmsnorm(device)
@@ -3627,11 +3871,6 @@ def main() -> int:
     for name, out in phase_examples(device, card).items():
         paths[name] = out
     _memory("examples", t_start)
-    # the graph profiles only (PERF.md section 5 reads them); the eager ones
-    # are cut to keep the script inside its time
-    phase_profile(device, serves["olmo-1b"], card, "graph")
-    phase_profile(device, serves["mamba2-780m"], card, "graph")
-    _memory("profile", t_start)
 
     # the serving paths' servers, weights and graph pools go before training
     path_launches = {name: out["launches"] for name, out in serves.items()}
@@ -3686,6 +3925,20 @@ def main() -> int:
     _memory("train-encdec", t_start)
     path_launches["cold-warm"] = phase_cold_warm(cold_warm, card)["path_launches"]
     _memory("cold-warm", t_start)
+    # StarCoder2-15B at full size, once the cold/warm children are gone: its
+    # stacked float32 draws take the allocator to ~73 GiB reserved
+    serve = phase_serve(device, card, DENSE_WINDOW_NAME, n_requests=len(DENSE_WINDOW_WIDTHS),
+                        widths=DENSE_WINDOW_WIDTHS, capacity=DENSE_WINDOW_CAPACITY,
+                        max_width=max(DENSE_WINDOW_WIDTHS), label="serve-dense-window",
+                        divergences=False)
+    path_launches["serve-dense-window"] = serve["launches"]
+    graphs = phase_graphs(device, card, {DENSE_WINDOW_NAME: serve}, label="graphs-dense-window")
+    path_launches["graphs-dense-window"] = graphs["launches"]
+    del serve, graphs
+    _release()
+    _memory("serve-dense-window, graphs-dense-window", t_start)
+    phase_dryrun_check(device, card)
+    _memory("dryrun-check", t_start)
     path_launches["train"] = phase_train(device, card, continued=True)["launches"]
     phase_train_profile(device, card)
     _memory("train", t_start)
@@ -3706,6 +3959,8 @@ def main() -> int:
     _memory("optimizer", t_start)
     phase_fault(fault, card)
     _memory("fault", t_start)
+    phase_dryrun(dryrun, card)
+    _memory("dryrun", t_start)
 
     def launches(kernel_name):
         by_path = {name: n[kernel_name] for name, n in path_launches.items()

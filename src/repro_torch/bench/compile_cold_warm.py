@@ -85,6 +85,10 @@ def child_main(build_root: str, device: str, wait=None) -> Dict[str, Any]:
     from ..kernels.flash_attention import kernel as attn_kernel
     from ..runtime.steps import init_train_state, train_step_for
 
+    # the counters are process-wide and a caller in process may have raised
+    # them before: report what this child's step lookup and step add
+    counters0 = compile_cache_counters()
+    launches0 = attn_kernel.flash_attention.launches
     build.set_root(build_root)
     dev = require_device(device)
     cfg = get_config("olmo-1b").reduced().validate()
@@ -104,9 +108,10 @@ def child_main(build_root: str, device: str, wait=None) -> Dict[str, Any]:
     first_step_s = time.perf_counter() - t0
     built = sorted(p.name for p in build.build_dir().glob("*.so")) if build.build_dir().is_dir() \
         else []
-    return {"first_step_s": first_step_s, "loss": loss, "counters": compile_cache_counters(),
+    counters = {k: v - counters0[k] for k, v in compile_cache_counters().items()}
+    return {"first_step_s": first_step_s, "loss": loss, "counters": counters,
             "build_dir": str(build.build_dir()), "libraries": built,
-            "launches": attn_kernel.flash_attention.launches, "device": str(dev)}
+            "launches": attn_kernel.flash_attention.launches - launches0, "device": str(dev)}
 
 
 # -- the parent -----------------------------------------------------------------

@@ -3,12 +3,12 @@
 The twin of the reference's ``benchmarks/run.py``: one module per figure
 (:mod:`.fig3_hashtable`, :mod:`.fig4_counters`, :mod:`.fig5_spinlock`),
 then the multi-instance agent (:mod:`.multi_instance`) and the kernel
-autotune (:mod:`.kernel_autotune`) twins, each with its wall time.  The
+autotune (:mod:`.kernel_autotune`) twins and the roofline table of the
+dry-run sweep (:mod:`.roofline_table`), each with its wall time.  The
 BO arms and the kernel autotune run on ``device`` (the card unless the
-caller asks for the CPU); the figures' objectives are host work.  The
-reference's ``roofline_table`` reads the dry-run sweep, which the port does
-not have yet: the suite says so in one line and goes on.  Outputs go under
-``out_dir`` (by default ``results/torch/bench/``).
+caller asks for the CPU); the figures' objectives are host work; the table
+reads what ``python -m repro_torch.launch.dryrun --all`` wrote.  Outputs go
+under ``out_dir`` (by default ``results/torch/bench/``).
 
     PYTHONPATH=src python -m repro_torch.bench.run                  # on the card
     PYTHONPATH=src python -m repro_torch.bench.run --device cpu --backend numpy
@@ -22,15 +22,12 @@ from typing import Any, Dict, List, Optional
 
 from . import BENCH_ROOT, require_device
 
-ROOFLINE_PENDING = ("roofline_table: not ported yet; it reads the dry-run and roofline layer, "
-                    "which the port does not have (ROADMAP A6)")
-
-
 def suite(*, device: Any = "cuda", backend: str = "torch",
           out_dir: Any = BENCH_ROOT) -> Dict[str, Any]:
     """Run every benchmark of the suite in the reference's order; returns
     each one's result and wall seconds."""
-    from . import fig3_hashtable, fig4_counters, fig5_spinlock, kernel_autotune, multi_instance
+    from . import (fig3_hashtable, fig4_counters, fig5_spinlock, kernel_autotune, multi_instance,
+                   roofline_table)
 
     device = str(require_device(device))
     steps: List[Any] = [
@@ -44,6 +41,7 @@ def suite(*, device: Any = "cuda", backend: str = "torch",
         ("multi_instance", lambda: multi_instance.run(device=device, out_dir=out_dir)),
         ("kernel_autotune", lambda: kernel_autotune.main(
             ["--device", device, "--out-dir", str(out_dir)])),
+        ("roofline_table", roofline_table.main),
     ]
     out: Dict[str, Any] = {}
     t0 = time.perf_counter()
@@ -56,8 +54,6 @@ def suite(*, device: Any = "cuda", backend: str = "torch",
         res = fn()
         out[name] = {"result": res, "wall_s": time.perf_counter() - t}
         print(f"    [{out[name]['wall_s']:.1f}s]")
-    print("\n--- roofline_table " + "-" * 46)
-    print(f"    {ROOFLINE_PENDING}")
     out["wall_s"] = time.perf_counter() - t0
     print(f"\ntotal: {out['wall_s']:.1f}s")
     return out

@@ -8,16 +8,21 @@ the context:
   * :func:`os_counters` reads ``/proc`` (CPU time, RSS, context switches,
     faults) through handles opened once per process;
   * :func:`compile_cache_counters` reads the port's step registry
-    (:func:`repro_torch.core.compilecache.cache_counters`).
+    (:func:`repro_torch.core.compilecache.cache_counters`);
+  * :func:`op_counters`, the twin of the reference's ``hlo_counters`` and
+    ``collective_bytes``: the "HW counters" of one call of a step, traced on
+    ``meta`` tensors (shapes and dtypes, no data, no byte allocated), so a
+    full-size cell is counted on the host.  The reference reads a compiled
+    XLA program's cost analysis and HLO text; the port counts the aten ops
+    the call dispatches.
 
-Both flow through the same :class:`TelemetryEmitter` onto the
+The first two flow through the same :class:`TelemetryEmitter` onto the
 shared-memory channel in the packed binary schema of
-:mod:`repro_torch.core.codegen`.  The reference's ``hlo_counters`` and
-``collective_bytes`` read a compiled XLA program's cost analysis and HLO
-text; they have no torch meaning and are not ported.
+:mod:`repro_torch.core.codegen`.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -26,7 +31,8 @@ from .channel import MlosChannel
 from .codegen import pack_telemetry
 from .registry import ComponentMeta
 
-__all__ = ["os_counters", "compile_cache_counters", "TelemetryEmitter", "Stopwatch"]
+__all__ = ["os_counters", "compile_cache_counters", "op_counters", "TelemetryEmitter",
+           "Stopwatch"]
 
 
 def compile_cache_counters() -> Dict[str, float]:
@@ -111,6 +117,128 @@ def os_counters(pid: str = "self") -> Dict[str, float]:
             _PROC_READERS.pop(pid, None)
             r.close()
     return out
+
+
+@functools.lru_cache(maxsize=1)
+def _counting_mode():
+    """The dispatch mode behind :func:`op_counters` (defined at first use:
+    this module imports no torch)."""
+    import torch
+    from torch.multiprocessing.reductions import StorageWeakRef
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    aten = torch.ops.aten
+    same_storage = (aten._unsafe_view, aten.lift_fresh)      # alias without a view schema
+
+    def tensor_bytes(t: "torch.Tensor") -> int:
+        return t.numel() * t.element_size()
+
+    class Counting(TorchDispatchMode):
+        """bytes_accessed: every op's tensor operands and results, read or
+        written once each, views (and ops that only alias) as zero;
+        collective_bytes: the results of c10d ops; live storage bytes, each
+        storage counted once from its first appearance until it is freed,
+        and their peak."""
+
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+            self.bytes_accessed = 0
+            self.collective_bytes = 0
+            self.live: Dict[int, tuple] = {}      # storage cdata -> (weak ref, nbytes)
+            self.cur = self.peak = 0
+
+        def storage_of(self, t: "torch.Tensor"):
+            try:
+                return t.untyped_storage()
+            except (RuntimeError, NotImplementedError):   # no storage: nothing allocated
+                return None
+
+        def track(self, t: "torch.Tensor") -> bool:
+            """Count ``t``'s storage if it is new; whether it was."""
+            st = self.storage_of(t)
+            if st is None:
+                return False
+            key = st._cdata
+            seen = self.live.get(key)
+            if seen is not None and not seen[0].expired():
+                return False
+            if seen is not None:                          # a freed storage's address reused
+                self.cur -= seen[1]
+            self.live[key] = (StorageWeakRef(st), st.nbytes())
+            self.cur += st.nbytes()
+            if self.cur > self.peak:                      # a new peak only if nothing freed
+                for k, (ref, n) in list(self.live.items()):
+                    if ref.expired():
+                        del self.live[k]
+                        self.cur -= n
+                self.peak = max(self.peak, self.cur)
+            return True
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            self.ops += 1
+            outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+            if func.namespace in ("c10d", "_c10d_functional"):
+                self.collective_bytes += sum(tensor_bytes(t) for t in outs)
+            elif func.overloadpacket is aten.embedding:       # reads the rows it gathers
+                self.bytes_accessed += tensor_bytes(args[1]) + 2 * tensor_bytes(out)
+            elif not (func.is_view or func.overloadpacket in same_storage):
+                ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+                self.bytes_accessed += sum(tensor_bytes(t) for t in ins + outs)
+            for t in outs:
+                self.track(t)
+            return out
+
+    return Counting
+
+
+def op_counters(fn: Any, *args: Any, **kwargs: Any) -> Dict[str, float]:
+    """Counters of one call ``fn(*args, **kwargs)``, run on ``meta`` tensors
+    (the arguments' tensors must be ``meta``; nothing is allocated):
+
+      * ``flops`` — ``torch.utils.flop_counter.FlopCounterMode``: the
+        products and convolutions it has formulas for (XLA's count adds
+        elementwise and transcendental operations);
+      * ``bytes_accessed`` — over the aten ops the call dispatches, their
+        tensor operands' and results' bytes, views counted as zero (an
+        embedding lookup reads the rows it gathers, not its whole table);
+      * ``collective_bytes`` — the bytes the call's collectives return;
+      * ``argument_bytes``, ``output_bytes``, ``alias_bytes`` — the
+        arguments' storages, the results' new storages, the results that
+        are argument storages (written in place);
+      * ``peak_bytes`` — the most bytes of live storage at once, arguments
+        included (each storage counted once from its creation until it is
+        freed); ``temp_bytes`` = peak − arguments;
+      * ``ops`` — the aten ops dispatched."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counting = _counting_mode()()
+    arg_tensors = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+    for t in arg_tensors:
+        if t.device.type != "meta":
+            raise ValueError(f"op_counters traces meta tensors; got one on {t.device}")
+        counting.track(t)
+    argument = counting.cur
+    arg_keys = {st._cdata for st in map(counting.storage_of, arg_tensors) if st is not None}
+    with FlopCounterMode(display=False) as flops, counting:
+        out = fn(*args, **kwargs)
+    outs = {st._cdata: st.nbytes() for st in
+            (counting.storage_of(t) for t in tree_leaves(out) if isinstance(t, torch.Tensor))
+            if st is not None}
+    return {"flops": float(flops.get_total_flops()),
+            "bytes_accessed": float(counting.bytes_accessed),
+            "collective_bytes": float(counting.collective_bytes),
+            "argument_bytes": float(argument),
+            "output_bytes": float(sum(n for k, n in outs.items() if k not in arg_keys)),
+            "alias_bytes": float(sum(n for k, n in outs.items() if k in arg_keys)),
+            "peak_bytes": float(counting.peak),
+            "temp_bytes": float(counting.peak - argument),
+            "ops": float(counting.ops)}
 
 
 class Stopwatch:

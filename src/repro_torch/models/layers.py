@@ -18,7 +18,8 @@ from .config import ModelConfig
 __all__ = ["P", "spec_leaves", "torch_dtype", "dtype_of", "init_leaf", "norm_params",
            "apply_norm", "mlp_params", "apply_mlp", "rope"]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
+           "int32": torch.int32, "int64": torch.int64}
 
 
 def torch_dtype(name: Any) -> torch.dtype:
@@ -77,7 +78,9 @@ def init_leaf(generator: torch.Generator, p: P, dtype: torch.dtype,
         else:
             std = 0.02
         x = torch.randn(p.shape, generator=generator, device=device, dtype=torch.float32)
-        return (x * std).to(dtype)
+        # scaled in place: a full-width stacked leaf's f32 draw is tens of GB
+        # (starcoder2-15b's MLP: 24.2 GB), and one copy of it is enough
+        return x.mul_(std).to(dtype)
     # the SSM decay parameters stay float32 whatever the model dtype
     if p.init == "ssm_a":  # A_log: log of uniform [1, 16]
         u = torch.rand(p.shape, generator=generator, device=device, dtype=torch.float32)

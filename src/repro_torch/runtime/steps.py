@@ -1,7 +1,9 @@
 """The train step: compute cast, microbatched gradients, AdamW, LR schedule.
 
-The port of the training half of ``repro/runtime/steps.py`` (the prefill
-and decode steps are the server's, :mod:`.serve_loop`).
+The port of ``repro/runtime/steps.py``.  The server runs prefill and decode
+through its own captured steps (:mod:`.serve_loop`); the plain bodies
+:func:`make_prefill_step` and :func:`make_decode_step` are the reference's,
+and are what the dry-run traces (:mod:`repro_torch.launch.specs`).
 :func:`make_train_step` assembles the loss's gradients (with microbatch
 accumulation in float32), the ``warmup_cosine`` schedule scaled by a live
 ``lr_scale``, and AdamW.  :func:`train_step_for` is the step as the
@@ -32,7 +34,7 @@ from ..optim.schedules import warmup_cosine
 from ..tree import leaves, tree_map
 
 __all__ = ["cast_for_compute", "train_state_specs", "TrainHyper", "make_train_step",
-           "train_step_for", "init_train_state"]
+           "train_step_for", "init_train_state", "make_prefill_step", "make_decode_step"]
 
 
 def _spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
@@ -148,6 +150,33 @@ def train_step_for(cfg: ModelConfig, hyper: Optional[TrainHyper] = None, *,
     return cached_step(make_train_step(cfg, hyper, microbatches=microbatches),
                        key="train.step",
                        context=(config_signature(cfg), hyper.key(), microbatches))
+
+
+def make_prefill_step(cfg: ModelConfig, cache_capacity: int) -> Callable:
+    """The reference's plain prefill step: ``prefill_step(params, batch) ->
+    {"logits", "caches", "pos"}``, ``batch`` = {"tokens" (B, S)[, "modal"]}.
+    The server runs the same model function through its captured steps
+    (:mod:`.serve_loop`); this body is what the dry-run traces."""
+    def prefill_step(params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        logits, caches, pos = M.prefill(params, cfg, batch["tokens"], cache_capacity,
+                                        batch.get("modal"))
+        return {"logits": logits, "caches": caches, "pos": pos}
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """The reference's plain decode step: ``decode_step(params, state) ->
+    {"token", "caches", "pos", "logits"}``, ``state`` = {"token" (B,),
+    "caches", "pos" (B,)}: one greedy token a row; the caches are updated in
+    place.  ``pos`` is per row, as the continuous server keeps it."""
+    def decode_step(params: Dict[str, Any], state: Dict[str, Any]):
+        logits, caches = M.decode_step(params, cfg, state["token"], state["caches"],
+                                       state["pos"])
+        token = torch.argmax(logits, dim=-1).to(state["token"].dtype)
+        return {"token": token, "caches": caches, "pos": state["pos"] + 1, "logits": logits}
+
+    return decode_step
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,

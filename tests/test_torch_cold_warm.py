@@ -40,12 +40,33 @@ def test_build_dir_follows_the_root_it_is_given(restore_root, tmp_path):
     assert build.set_root(build.BUILD_ROOT) == tmp_path and build.build_dir() == default
 
 
-def test_the_child_honours_its_build_root(restore_root, tmp_path):
+@pytest.fixture
+def fresh_registry(monkeypatch):
+    """An empty step registry for the test, so the child's step lookup is
+    a miss whatever ran before in this process; the old one comes back."""
+    monkeypatch.setattr(compilecache, "_REGISTRY", {})
+
+
+def test_the_child_honours_its_build_root(restore_root, fresh_registry, tmp_path):
     out = compile_cold_warm.child_main(str(tmp_path / "root"), "cpu")
     assert Path(out["build_dir"]) == compilecache.persistent_cache_dir(tmp_path / "root")
     assert out["first_step_s"] > 0 and out["counters"]["misses"] >= 1
     assert out["libraries"] == [] and out["launches"] == 0     # a CPU tensor builds nothing
     assert out["device"] == "cpu"
+
+
+def test_the_child_counts_only_its_own_step(restore_root, fresh_registry, monkeypatch,
+                                            tmp_path):
+    """Launches and registry counts that an earlier caller left in the
+    process-wide counters are not the child's."""
+    from repro_torch.kernels.flash_attention import kernel as attn_kernel
+
+    monkeypatch.setattr(attn_kernel.flash_attention, "launches",
+                        attn_kernel.flash_attention.launches + 14)
+    monkeypatch.setitem(compilecache._COUNTERS, "misses", compilecache._COUNTERS["misses"] + 5)
+    out = compile_cold_warm.child_main(str(tmp_path / "root"), "cpu")
+    assert out["launches"] == 0 and out["counters"]["misses"] == 1
+    assert out["counters"]["hits"] == 0
 
 
 def test_the_priming_child_is_not_counted_and_the_roots_go(monkeypatch):

@@ -222,10 +222,13 @@ def test_graph_step_warms_up_captures_once_then_replays(fake_capture):
     assert c["captures"] == 1 and c["replays"] == 3 and c["build_seconds"] > 0
 
 
-def test_replays_add_the_launches_recorded_at_capture(fake_capture):
+def test_replays_add_the_launches_recorded_at_capture(fake_capture, monkeypatch):
     """A replay runs no Python, so the wrappers' counters would not move: the
     increase during the capture is added at every replay, and the warm-up
-    counts as the real execution it is."""
+    counts as the real execution it is.  The counters are process-wide, so
+    the test puts them back."""
+    monkeypatch.setattr(fa_kernel.flash_attention, "launches", fa_kernel.flash_attention.launches)
+    monkeypatch.setattr(ssd_kernel.ssd, "launches", ssd_kernel.ssd.launches)
     def body(out):
         fa_kernel.flash_attention.launches += 2            # as two wrapper calls would
         ssd_kernel.ssd.launches += 1

@@ -126,8 +126,10 @@ def test_the_figures_refuse_a_missing_card(monkeypatch):
 def test_the_suite_runs_every_figure_and_names_the_roofline_as_pending(monkeypatch, tmp_path,
                                                                          capsys):
     """The suite's order and walls, with each benchmark stubbed (each has its
-    own test); the reference's roofline table waits for the dry-run layer."""
-    from repro_torch.bench import kernel_autotune, multi_instance
+    own test); the reference's roofline table comes last, read from the
+    port's dry-run records (none here: it names the command that writes
+    them)."""
+    from repro_torch.bench import kernel_autotune, multi_instance, roofline_table
 
     ran = []
     for mod, fn in ((fig3_hashtable, "run"), (fig4_counters, "run"), (fig5_spinlock, "run"),
@@ -135,9 +137,11 @@ def test_the_suite_runs_every_figure_and_names_the_roofline_as_pending(monkeypat
         monkeypatch.setattr(mod, fn, lambda *a, _m=mod.__name__, **k: ran.append(_m) or {})
     for mod in (fig3_hashtable, fig4_counters, fig5_spinlock):
         monkeypatch.setattr(mod, "write", lambda res, *a, **k: res)
+    monkeypatch.setattr(roofline_table, "DRYRUN_DIR", str(tmp_path / "dryrun"))
     out = suite.suite(device="cpu", backend="numpy", out_dir=tmp_path)
     assert [m.rsplit(".", 1)[-1] for m in ran] == ["fig3_hashtable", "fig4_counters",
                                                   "fig5_spinlock", "multi_instance",
                                                   "kernel_autotune"]
-    assert all(out[k]["wall_s"] >= 0 for k in ("fig3_hashtable", "fig4_counters"))
-    assert suite.ROOFLINE_PENDING in capsys.readouterr().out
+    assert all(out[k]["wall_s"] >= 0 for k in ("fig3_hashtable", "fig4_counters",
+                                               "roofline_table"))
+    assert "repro_torch.launch.dryrun --all" in capsys.readouterr().out
