@@ -337,6 +337,25 @@ Phases, in order; any failure exits non-zero before the result lines:
                      beat 0.95 x its ``step_time_bound_s``).  The ``HW``
                      table of ``launch/mesh.py`` must name this card (name,
                      fingerprint, memory).
+ 33b. dryrun-check-sharded — rank 0 of the reference's production mesh
+                     ``single`` (data 16 x model 16) on the card, for
+                     olmo-1b/prefill_32k (head-parallel flash at B2 S32768
+                     H1 D128), deepseek-67b/decode_32k (GQA with K/V
+                     replicated, the sequence-sharded cache's distributed
+                     flash-decode) and olmoe-1b-7b/train_4k (the local_map
+                     MoE, FSDP gathers, the recomputing backward): each
+                     cell's sharded record (``run_cell(..., "single")``,
+                     meta DTensors in a fake group) is printed, then inside
+                     ``launch.mesh.traced_group(mesh, "cuda")`` (the fake
+                     group completes each collective without moving data)
+                     rank 0's shards of its arguments at full size and one
+                     step: the peak allocated must be within 10% of the
+                     record's ``per_device_bytes``; flash attention's
+                     launches must equal the step's attention calls, and
+                     the kernel must agree with its plain version at every
+                     local shape it ran (the kernels phase's tolerances); a
+                     second step's time by events beside
+                     ``step_time_bound_s``, ungated.
  34. dryrun       — ``python -m repro_torch.launch.dryrun --mesh one`` on
                      every arch (all 40 cells in three interpreters side by
                      side; host only: the card is hidden from it),
@@ -344,13 +363,18 @@ Phases, in order; any failure exits non-zero before the result lines:
                      ``launch.perf``'s hillclimb of olmo-1b/train_4k
                      (patience 3, each experiment a fresh dry-run
                      interpreter) into a temporary directory and store;
-                     started in the background after the build, read after
-                     17: no cell in error, a skip exactly where
-                     ``cell_status`` skips, every persisted winner filed
-                     under the card's fingerprint.
+                     beside them a fourth interpreter traces 33b's three
+                     cells on ``single`` and ``multi`` and hillclimbs
+                     olmo-1b/train_4k on ``single`` into a store of its
+                     own; started in the background after the build, read
+                     after 17: no cell in error, a skip exactly where
+                     ``cell_status`` skips, each sharded record full (a
+                     train cell's collective term non-zero, ``multi`` half
+                     of ``single``'s optimizer state a device), every
+                     persisted winner filed under the card's fingerprint.
 
 Phases 11-13b and 13d run after the campaign phase; phases 20-24, 26-29
-and 31-33 after those, once the serving
+and 31-33b after those, once the serving
 phases' servers, weights and graph pools are released (one model's weights
 at a time), then 25 and 30; phases 14-19 after those, once theirs are
 released too.  Two twins whose children are fresh interpreters run in the
@@ -2387,6 +2411,253 @@ def phase_dryrun_check(device, card: str) -> dict:
     return out
 
 
+DRYRUN_SHARDED = (("olmo-1b", "prefill_32k"), ("deepseek-67b", "decode_32k"),
+                  ("olmoe-1b-7b", "train_4k"))
+DRYRUN_SHARDED_MESH = "single"
+
+
+def _local_leaf(p, rules, mesh, dtype, gen, device, vocab: int = 0):
+    """Rank 0's shard of one argument leaf: token ids drawn below ``vocab``
+    (where given), a weight drawn at the whole leaf's scale (``init_leaf``'s
+    fan-in std), every other leaf as ``init_leaf`` makes it (zeros: caches,
+    moments, counters)."""
+    import math
+
+    from repro_torch.models.layers import P, init_leaf
+    from repro_torch.parallel import sharding as shd
+
+    local = shd.local_shape(p, rules, mesh)
+    dt = p.with_dtype(dtype)
+    if vocab:
+        return torch.randint(0, vocab, local, generator=gen, device=device)
+    if p.init in ("normal", "embed"):
+        fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        std = p.scale / math.sqrt(max(fan_in, 1)) if p.init == "normal" else 0.02
+        return torch.randn(local, generator=gen, device=device).mul_(std).to(dt)
+    return init_leaf(gen, P(local, p.logical, p.init, p.scale, p.dtype), dt, device)
+
+
+def sharded_args(cfg, shape, mesh, rules, device_mesh, device, seed: int = 0) -> dict:
+    """The cell's arguments (``launch.specs.cell_specs``) as DTensors whose
+    local tensors are rank 0's shards on ``device``, never the whole: a
+    decode state's positions at the context's last."""
+    from repro_torch.launch.specs import cell_specs
+    from repro_torch.models.layers import P, dtype_of
+    from repro_torch.parallel import sharding as shd
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    specs = cell_specs(cfg, shape)
+
+    def walk(tree, path=""):
+        if isinstance(tree, P):
+            if path.endswith("pos"):
+                return torch.full(shd.local_shape(tree, rules, mesh), shape.seq_len - 1,
+                                  dtype=torch.long, device=device)
+            ids = any(path.endswith(k) for k in ("tokens", "labels", "token"))
+            return _local_leaf(tree, rules, mesh, dtype_of(cfg), gen, device,
+                               cfg.vocab_size if ids else 0)
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        return [walk(v, f"{path}/{i}") for i, v in enumerate(tree)]
+
+    return {k: shd.distribute(walk(v, k), v, rules, device_mesh) for k, v in specs.items()}
+
+
+def dryrun_sharded_path(device, arch: str, shape_name: str, mesh_name: str, *, cfg=None,
+                        shape=None) -> dict:
+    """One cell of a production mesh, rank 0's local program on ``device``.
+    The dry-run's record (``launch.dryrun.run_cell``: meta DTensors in a
+    fake group, nothing allocated), then inside
+    ``launch.mesh.traced_group(mesh, device)`` rank 0's shards of the cell's
+    arguments at full size and one step of the cell's body on them
+    (``launch.specs.plan_cell``): the fake group completes every collective
+    without moving data, so the values after one are not meaningful, but
+    the shapes, allocations and launches are.  Returns the peak of
+    ``torch.cuda.max_memory_allocated`` over the cell's own allocations, a
+    second step's time by CUDA events, every kernel's launches in the first
+    step (``step_launches``) and in both (``launches``), and the local
+    shapes the flash kernel was launched at."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch import dryrun, shapes, specs
+    from repro_torch.launch.mesh import get_mesh, traced_group
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    cfg = cfg or get_config(arch)
+    shape = shape or shapes.SHAPES[shape_name]
+    mesh = get_mesh(mesh_name)
+    rec = dryrun.run_cell(arch, shape_name, mesh_name, cfg=cfg, shape=shape)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run {arch}/{shape_name}/{mesh_name}: {rec['status']} "
+                             f"{rec.get('error', rec.get('reason', ''))}")
+    calls, launch, kernels = [], fa._launch, _kernels()
+
+    def recording(q, k, *rest):
+        calls.append((tuple(q.shape), tuple(k.shape), q.dtype, *rest[1:4]))
+        return launch(q, k, *rest)
+
+    out = {"record": rec}
+    rules = specs.cell_rules(shape, mesh)
+    with traced_group(mesh, device.type) as dm:
+        if cuda:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+        args = sharded_args(cfg, shape, mesh, rules, dm, device)
+        plan = specs.plan_cell(arch, shape, cfg, args, mesh, rules, {}, rec["microbatches"], dm)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        fa._launch = recording
+        try:
+            result = plan.step(*plan.args)
+            if cuda:
+                torch.cuda.synchronize()
+                out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        finally:
+            fa._launch = launch
+        out["step_launches"] = {name: fn.launches for name, fn in kernels.items()}
+        out["calls"] = calls
+        del result
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = plan.step(*plan.args)
+            end.record()
+            end.synchronize()
+            out["step_ms"] = start.elapsed_time(end)
+            del result
+        out["launches"] = {name: fn.launches for name, fn in kernels.items()}
+        del plan, args
+    return out
+
+
+def sharded_attention_calls(cfg, shape, microbatches: int) -> int:
+    """Flash-attention launches of one step of a cell: its self-attention
+    layers times each layer's forward calls (``launch.adjust``: one a
+    prefill, two a train step under a recomputing ``remat``), plus a
+    cross-attending family's cross-attention calls; none in a decode."""
+    from repro_torch.launch import adjust
+
+    if shape.kind == "decode":
+        return 0
+    per_forward = attention_passes(cfg)
+    return per_forward * adjust.forward_calls_per_layer(cfg, shape, microbatches)
+
+
+def phase_dryrun_check_sharded(device, card: str) -> dict:
+    """:func:`dryrun_sharded_path` for each cell of ``DRYRUN_SHARDED`` on
+    ``DRYRUN_SHARDED_MESH``, one cell's weights at a time: the measured peak
+    must be within ``DRYRUN_MEMORY_RTOL`` of the sharded record's
+    ``per_device_bytes``; where the cell runs flash attention its launches
+    must equal the step's attention calls, and the kernel must agree with
+    its plain version at every local shape it was launched at (seeded
+    inputs, the kernels phase's tolerances).  The step's time by events is
+    printed beside ``step_time_bound_s``, with no gate."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shapes
+
+    kernel, ref = _import_port()
+    t0 = time.perf_counter()
+    out = {}
+    for arch, shape_name in DRYRUN_SHARDED:
+        _release()
+        t1 = time.perf_counter()
+        r = dryrun_sharded_path(device, arch, shape_name, DRYRUN_SHARDED_MESH)
+        rec, cfg, shape = r["record"], get_config(arch), shapes.SHAPES[shape_name]
+        pred, got = rec["per_device_bytes"], r["peak_bytes"]
+        bound_ms = 1e3 * rec["step_time_bound_s"]
+        coll = {k: f"{v['count']:.0f} x, {v['bytes'] / 1e9:.4f} GB"
+                for k, v in rec["counters"]["collectives"].items()}
+        print(f"dryrun-check-sharded: {arch}/{shape_name}/{DRYRUN_SHARDED_MESH} rank 0: "
+              f"per_device_bytes {pred / 1e9:.4f} GB (state "
+              f"{sum(rec['memory']['state'].values()) / 1e9:.4f} GB: "
+              + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in rec["memory"]["state"].items())
+              + f"), fits {rec['fits']}; compute {1e3 * rec['roofline']['compute_s']:.4f} ms, "
+              f"memory {1e3 * rec['roofline']['memory_s']:.4f} ms, collective "
+              f"{1e3 * rec['roofline']['collective_s']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({rec['bottleneck']}), roofline_fraction {rec['roofline_fraction']:.6f}; "
+              f"collectives {coll}; traced in {rec['wall']['production_trace_s']:.1f} + "
+              f"{rec['wall']['counter_passes_s']:.1f} s")
+        print(f"dryrun-check-sharded: {arch}: measured peak allocated {got / 1e9:.4f} GB "
+              f"({got / pred - 1:+.2%} on the dry-run), eager step {r['step_ms']:.4f} ms by "
+              f"events ({r['step_ms'] / bound_ms:.3f} x its bound), launches of the two steps "
+              f"{r['launches']}, flash_attention at "
+              f"{sorted(set(c[:2] for c in r['calls']))} ({card})")
+        if abs(got - pred) > DRYRUN_MEMORY_RTOL * pred:
+            raise AssertionError(f"{arch}/{shape_name}: measured peak {got} bytes is not within "
+                                 f"{DRYRUN_MEMORY_RTOL:.0%} of the sharded dry-run's {pred:.0f}")
+        want = sharded_attention_calls(cfg, shape, rec["microbatches"])
+        first, both = r["step_launches"]["flash_attention"], r["launches"]["flash_attention"]
+        if first != want or both != 2 * want:
+            raise AssertionError(f"{arch}/{shape_name}: {first} flash_attention launches in the "
+                                 f"first step and {both} in two, the step has {want} attention "
+                                 f"calls")
+        worst = 0.0
+        for i, (qs, ks, dtype, causal, window, q_offset) in enumerate(sorted(set(r["calls"]))):
+            b, sq, h, d = qs
+            q, k, v = _qkv((b, sq, ks[1], h, ks[2], d), dtype, device, seed=4000 + i)
+            got_o = kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                           q_offset=q_offset)
+            want_o = _plain_attention(ref, q, k, v, window, q_offset, causal, rows=1024)
+            torch.cuda.synchronize()
+            err = (got_o.float() - want_o.float()).abs()
+            tol = TOL[dtype]
+            if not torch.isfinite(got_o).all() or (err > tol + tol * want_o.float().abs()).any():
+                raise AssertionError(f"{arch}: the kernel at the local shape q {qs} k {ks} "
+                                     f"disagrees with naive_attention: max abs err "
+                                     f"{err.max().item():.3g}, tol {tol:.3g}")
+            worst = max(worst, err.max().item())
+            del q, k, v, got_o, want_o, err
+        if r["calls"]:
+            print(f"dryrun-check-sharded: {arch}: flash_attention at the local shapes vs "
+                  f"naive_attention, max abs err {worst:.3g} (tol {TOL[r['calls'][0][2]]:.3g} "
+                  f"abs + rel); phase wall for the cell {time.perf_counter() - t1:.1f} s")
+        out[f"{arch}/{shape_name}"] = {"per_device_bytes": pred, "peak_bytes": got,
+                                       "step_ms": r["step_ms"], "bound_ms": bound_ms,
+                                       "launches": r["launches"], "max_abs_err": worst}
+    _release()
+    refuses_a_shard_without_a_kernel(device)
+    print(f"dryrun-check-sharded: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def refuses_a_shard_without_a_kernel(device) -> None:
+    """The dispatchers take no plain version on the card: a local shape no
+    kernel is built for (hymba's SSD head-dim shard of 64/16 = 4 on
+    ``single``; an attention head dim of 8) raises before any launch, where
+    the dry-run's ``meta`` trace runs it plain and counts it as
+    ``no_kernel``."""
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {
+        "ssd": lambda: ssd_ops.ssd(
+            torch.zeros((1, 64, 2, 4), dtype=bf, device=device),
+            torch.zeros((1, 64, 2), dtype=f32, device=device),
+            torch.zeros((2,), dtype=f32, device=device),
+            torch.zeros((1, 64, 1, 16), dtype=bf, device=device),
+            torch.zeros((1, 64, 1, 16), dtype=bf, device=device), impl="kernel"),
+        "flash_attention": lambda: attn_ops.flash_attention(
+            *(torch.zeros((1, 64, 2, 8), dtype=bf, device=device),) * 3, impl="kernel"),
+    }
+    kernels = _kernels()
+    for name, call in cases.items():
+        n0 = kernels[name].launches
+        try:
+            call()
+        except ValueError as e:
+            print(f"dryrun-check-sharded: {name} at a shard shape no kernel is built for "
+                  f"raises on the card: {e}")
+        else:
+            raise AssertionError(f"{name}: a shape no kernel is built for ran on the card")
+        if kernels[name].launches != n0:
+            raise AssertionError(f"{name}: the refused call counted a launch")
+
+
 def check_hw() -> None:
     """The ``HW`` table names this card: its name, fingerprint and memory."""
     from repro_torch.core import configstore
@@ -2407,12 +2678,19 @@ DRYRUN_GROUPS = (("mamba2-780m", "starcoder2-15b", "command-r-35b", "olmo-1b"),
                  ("llama-3.2-vision-11b", "mixtral-8x22b", "seamless-m4t-medium"))
 
 
+DRYRUN_SHARDED_MESHES = ("single", "multi")
+DRYRUN_SHARDED_HILLCLIMB = ("olmo-1b", "train_4k", "single", 3)   # the reference's default mesh
+
+
 def start_dryrun() -> Background:
     """The dry-run sweep of every arch x shape on ``one`` (``DRYRUN_GROUPS``:
     three interpreters side by side, an arch at a time), its roofline table,
     then the hillclimb of ``DRYRUN_HILLCLIMB`` (each experiment a fresh
     dry-run interpreter), into a temporary directory and config store, in
-    the background: host work only, so the card is hidden from it."""
+    the background: host work only, so the card is hidden from it.  Beside
+    the three, a fourth interpreter traces the ``DRYRUN_SHARDED`` cells on
+    ``single`` and ``multi`` (rank 0's sharded program on a fake group), then
+    hillclimbs ``DRYRUN_SHARDED_HILLCLIMB`` into a store of its own."""
     import shlex
     import tempfile
 
@@ -2424,7 +2702,16 @@ def start_dryrun() -> Background:
     wall = 'echo "{} wall $(( $(date +%s) - s0 )) s"'.format
     groups = " ".join(f"( for a in {' '.join(g)}; do {sweep} --arch $a || exit 1; done ) & "
                       f"p{i}=$!;" for i, g in enumerate(DRYRUN_GROUPS))
-    waits = " && ".join(f"wait $p{i}" for i in range(len(DRYRUN_GROUPS)))
+    sh_arch, sh_shape, sh_mesh, sh_patience = DRYRUN_SHARDED_HILLCLIMB
+    cells = " && ".join(f"{py} -m repro_torch.launch.dryrun --arch {a} --shape {c} --mesh {m} "
+                        f"--out {out} --store {store}"
+                        for a, c in DRYRUN_SHARDED for m in DRYRUN_SHARDED_MESHES)
+    groups += (f" ( {cells} && {wall('sharded cells')} && {py} -m repro_torch.launch.perf "
+               f"--arch {sh_arch} --shape {sh_shape} --mesh {sh_mesh} --patience {sh_patience} "
+               f"--out {out} --store {workdir / 'store_sharded'} --log "
+               f"{workdir / 'perf_sharded.json'} && {wall('sharded hillclimb')} ) & "
+               f"p{len(DRYRUN_GROUPS)}=$!;")
+    waits = " && ".join(f"wait $p{i}" for i in range(len(DRYRUN_GROUPS) + 1))
     cmd = (f"s0=$(date +%s); {groups} {waits} && {wall('sweep')} && {py} -m "
            f"repro_torch.launch.roofline --dir {out} --mesh one && {py} -m "
            f"repro_torch.launch.perf --arch {arch} --shape {shape} --mesh one --patience "
@@ -2466,6 +2753,48 @@ def check_dryrun(workdir) -> dict:
     return {"records": recs, "hillclimb": summary, "entries": entries}
 
 
+def check_dryrun_sharded(workdir) -> dict:
+    """The sharded cells and their hillclimb under ``workdir``: each of
+    ``DRYRUN_SHARDED`` on ``single`` and ``multi`` a full record (status ok,
+    the roofline's keys, each device's state); a train cell's collective
+    term non-zero; ``multi`` half of ``single``'s optimizer state a device
+    (the pod axis joins FSDP); every hillclimb entry under the card of ``HW``
+    and the cell's own context."""
+    workdir = Path(workdir)
+    keys = {"per_device_bytes", "fits", "counters", "roofline", "bottleneck",
+            "step_time_bound_s", "useful_flops_ratio", "roofline_fraction", "memory"}
+    recs = {}
+    for arch, shape in DRYRUN_SHARDED:
+        for mesh in DRYRUN_SHARDED_MESHES:
+            path = workdir / "dryrun" / f"{arch}__{shape}__{mesh}.json"
+            if not path.exists():
+                raise AssertionError(f"dry-run: no record for {arch}/{shape}/{mesh}")
+            rec = json.loads(path.read_text())
+            if rec["status"] != "ok" or not keys <= set(rec) or "state" not in rec["memory"]:
+                raise AssertionError(f"dry-run {arch}/{shape}/{mesh}: {rec['status']} "
+                                     f"{rec.get('error', '')}, keys {sorted(rec)}")
+            if shape.startswith("train") and rec["roofline"]["collective_s"] <= 0:
+                raise AssertionError(f"dry-run {arch}/{shape}/{mesh}: no collective term")
+            recs[(arch, shape, mesh)] = rec
+        if shape.startswith("train"):
+            one, two = (recs[(arch, shape, m)]["memory"]["state"]["opt"]
+                        for m in DRYRUN_SHARDED_MESHES)
+            if abs(two - one / 2) > 0.05 * one:
+                raise AssertionError(f"dry-run {arch}/{shape}: multi holds {two:.0f} bytes of "
+                                     f"optimizer state a device, single {one:.0f}")
+    summary = json.loads((workdir / "perf_sharded.json").read_text())
+    entries = [e for p in sorted((workdir / "store_sharded").glob("*.json"))
+               for e in json.loads(p.read_text())["entries"]]
+    arch, shape, mesh, _ = DRYRUN_SHARDED_HILLCLIMB
+    if any(e["context"]["hardware"] != HW["fingerprint"] or
+           e["context"]["workload"] != f"{arch}/{shape}/{mesh}" for e in entries):
+        raise AssertionError(f"sharded hillclimb entries {[e['context'] for e in entries]}")
+    if len(entries) != len(summary["persisted_contexts"]):
+        raise AssertionError(f"{len(entries)} store entries for "
+                             f"{summary['persisted_contexts']}")
+    return {"records": recs, "hillclimb": summary, "entries": entries}
+
+
 def phase_dryrun(twin, card: str) -> dict:
     """The dry-run sweep and hillclimb started by :func:`start_dryrun`, read
     where it ends (:func:`check_dryrun`); the table and the hillclimb's log
@@ -2473,6 +2802,7 @@ def phase_dryrun(twin, card: str) -> dict:
     try:
         waited = twin.finish("dryrun")
         out = check_dryrun(twin.dir)
+        sharded = check_dryrun_sharded(twin.dir)
     finally:
         twin.stop()
     recs, hc = out["records"], out["hillclimb"]
@@ -2484,6 +2814,23 @@ def phase_dryrun(twin, card: str) -> dict:
           f"{1e3 * max(hc['best']['terms'].values()):.2f} ms, kept {hc['best']['sets']}, "
           f"{len(out['entries'])} entries under {HW['fingerprint']}; {waited:.1f} s waited "
           f"here, {time.perf_counter() - twin.t0:.1f} s after its start ({card})")
+    for (arch, shape, mesh), rec in sharded["records"].items():
+        r, st = rec["roofline"], rec["memory"]["state"]
+        coll = {k: f"{v['count']:.0f} x {v['bytes'] / 1e9:.4f} GB"
+                for k, v in rec["counters"]["collectives"].items()}
+        print(f"dryrun: {arch}/{shape}/{mesh} rank 0 of {rec['chips']}: "
+              f"{rec['per_device_bytes'] / 1e9:.4f} GB a device (state "
+              + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in st.items())
+              + f"), fits {rec['fits']}; compute {1e3 * r['compute_s']:.3f} ms, memory "
+              f"{1e3 * r['memory_s']:.3f} ms, collective {1e3 * r['collective_s']:.3f} ms, "
+              f"bound {rec['bottleneck']}, roofline_fraction {rec['roofline_fraction']:.5f}, "
+              f"useful_flops_ratio {rec['useful_flops_ratio']:.4f}; collectives {coll}")
+    hc = sharded["hillclimb"]
+    print(f"dryrun: hillclimb {hc['cell']}: step bound "
+          f"{1e3 * max(hc['baseline']['terms'].values()):.2f} -> "
+          f"{1e3 * max(hc['best']['terms'].values()):.2f} ms, kept {hc['best']['sets']}, "
+          f"{len(sharded['entries'])} entries under {HW['fingerprint']}")
+    out["sharded"] = sharded
     return out
 
 
@@ -3939,6 +4286,10 @@ def main() -> int:
     _memory("serve-dense-window, graphs-dense-window", t_start)
     phase_dryrun_check(device, card)
     _memory("dryrun-check", t_start)
+    sharded = phase_dryrun_check_sharded(device, card)
+    path_launches["dryrun-check-sharded"] = {
+        name: sum(c["launches"][name] for c in sharded.values()) for name in _kernels()}
+    _memory("dryrun-check-sharded", t_start)
     path_launches["train"] = phase_train(device, card, continued=True)["launches"]
     phase_train_profile(device, card)
     _memory("train", t_start)

@@ -3,8 +3,8 @@
 The twin of the reference's ``benchmarks/roofline_table.py``: the records
 ``python -m repro_torch.launch.dryrun --all`` wrote under
 ``results/torch/dryrun/``, one table per mesh that has records (``one``: the
-card's fit and roofline; ``single``, ``multi``: each device's state under
-the sharding rules), and the three hillclimb cells.
+card; ``single``, ``multi``: rank 0 of the sharded program, each device an
+H100), and each mesh's three hillclimb cells.
 
     PYTHONPATH=src python -m repro_torch.bench.roofline_table
 """
@@ -21,16 +21,16 @@ def main(out_dir: Optional[str] = None) -> str:
     cells = load_cells(out_dir or DRYRUN_DIR)
     if not cells:
         text = ("roofline: no dry-run results yet — run "
-                "`PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh one` first")
+                "`PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh all` first")
         print(text)
         return text
     parts = []
     for mesh in ("one", "single", "multi"):
         if any(c.get("mesh") == mesh for c in cells):
             parts.append(f"\n### mesh {mesh}\n" + render_table(cells, mesh))
-    ok = [c for c in cells if c["status"] == "ok" and c.get("mesh") == "one"]
-    if len(ok) >= 3:
-        parts.append("\nhillclimb cells: " + json.dumps(pick_hillclimb_cells(cells, "one")))
+            if sum(c["status"] == "ok" and c.get("mesh") == mesh for c in cells) >= 3:
+                parts.append(f"\nhillclimb cells ({mesh}): "
+                             + json.dumps(pick_hillclimb_cells(cells, mesh)))
     text = "\n".join(parts)
     print(text)
     return text

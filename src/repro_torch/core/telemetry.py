@@ -119,17 +119,32 @@ def os_counters(pid: str = "self") -> Dict[str, float]:
     return out
 
 
+COLLECTIVE_KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all")
+
+
+def _collective_kind(name: str) -> Optional[str]:
+    """The kind of a collective op by its name (``all_gather_into_tensor`` →
+    ``all_gather``, DTensor's ``shard_dim_alltoall`` → ``all_to_all``), None
+    for what moves no data (``wait_tensor``)."""
+    for kind in COLLECTIVE_KINDS:
+        if kind in name or kind.replace("_", "") in name:
+            return kind
+    return "broadcast" if name.startswith("broadcast") else None
+
+
 @functools.lru_cache(maxsize=1)
 def _counting_mode():
     """The dispatch mode behind :func:`op_counters` (defined at first use:
     this module imports no torch)."""
     import torch
+    from torch.distributed.tensor import DTensor
     from torch.multiprocessing.reductions import StorageWeakRef
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
 
     aten = torch.ops.aten
     same_storage = (aten._unsafe_view, aten.lift_fresh)      # alias without a view schema
+    plain = (torch.Tensor, torch.nn.Parameter)
 
     def tensor_bytes(t: "torch.Tensor") -> int:
         return t.numel() * t.element_size()
@@ -137,15 +152,27 @@ def _counting_mode():
     class Counting(TorchDispatchMode):
         """bytes_accessed: every op's tensor operands and results, read or
         written once each, views (and ops that only alias) as zero;
-        collective_bytes: the results of c10d ops; live storage bytes, each
-        storage counted once from its first appearance until it is freed,
-        and their peak."""
+        collective_bytes: the results of c10d ops, by kind and by the mesh
+        axes of their group; live storage bytes, each storage counted once
+        from its first appearance until it is freed, and their peak.
 
-        def __init__(self):
+        In a DTensor program it counts one rank's local program: an op on
+        DTensors is handed back (``NotImplemented``) to DTensor's dispatch,
+        which runs the op on the local shards (and any redistribution's
+        collectives) through this mode again as plain ops; the sharding
+        propagation's own ops on global-shape fake tensors are run and not
+        counted.  ``flop_registry`` (``FlopCounterMode``'s formulas) then
+        counts the local products' FLOPs here."""
+
+        def __init__(self, flop_registry=None, group_axes=None):
             super().__init__()
             self.ops = 0
+            self.flops = 0
+            self.flop_registry = flop_registry
+            self.group_axes = group_axes or {}
             self.bytes_accessed = 0
             self.collective_bytes = 0
+            self.collectives: Dict[str, Dict[str, Any]] = {}
             self.live: Dict[int, tuple] = {}      # storage cdata -> (weak ref, nbytes)
             self.cur = self.peak = 0
 
@@ -176,18 +203,58 @@ def _counting_mode():
                 self.peak = max(self.peak, self.cur)
             return True
 
+        def alias(self, src: "torch.Tensor", dst: "torch.Tensor") -> None:
+            """``dst`` is ``src``'s data (a collective's wait or autograd wrap:
+            on the card the same storage; on ``meta`` a new one, which takes
+            over ``src``'s bytes here instead of adding its own)."""
+            a, b = self.storage_of(src), self.storage_of(dst)
+            if a is None or b is None or a._cdata == b._cdata:
+                return
+            ref, n = self.live.get(a._cdata, (None, 0))
+            if ref is None or ref.expired():
+                self.track(dst)
+                return
+            self.live[a._cdata] = (ref, 0)
+            self.live[b._cdata] = (StorageWeakRef(b), n)
+
+        def collective(self, func, args, outs) -> None:
+            kind = _collective_kind(func.overloadpacket.__name__.lstrip("_"))
+            if kind is None:
+                return
+            n = sum(tensor_bytes(t) for t in outs)
+            self.collective_bytes += n
+            entry = self.collectives.setdefault(kind, {"count": 0, "bytes": 0.0, "axes": {}})
+            entry["count"] += 1
+            entry["bytes"] += n
+            axes = "+".join(self.group_axes.get(a, "?") for a in tree_leaves(args)
+                            if isinstance(a, str) and a in self.group_axes) or "?"
+            entry["axes"][axes] = entry["axes"].get(axes, 0.0) + n
+
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
+            if any(t not in plain for t in types):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented             # DTensor runs it on the shards
+                return func(*args, **kwargs)          # fake tensors: not this rank's work
+            if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+                return func(*args, **kwargs)          # a fake mode's factory, the same
             out = func(*args, **kwargs)
             self.ops += 1
+            if func.namespace == "_c10d_functional" and \
+                    func.overloadpacket.__name__ in ("wait_tensor", "_wrap_tensor_autograd"):
+                self.alias(args[0], out)
+                return out
             outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
-            if func.namespace in ("c10d", "_c10d_functional"):
-                self.collective_bytes += sum(tensor_bytes(t) for t in outs)
+            if func.namespace in ("c10d", "_c10d_functional", "_dtensor"):
+                self.collective(func, args, outs)
             elif func.overloadpacket is aten.embedding:       # reads the rows it gathers
                 self.bytes_accessed += tensor_bytes(args[1]) + 2 * tensor_bytes(out)
             elif not (func.is_view or func.overloadpacket in same_storage):
                 ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
                 self.bytes_accessed += sum(tensor_bytes(t) for t in ins + outs)
+            if self.flop_registry is not None and func.overloadpacket in self.flop_registry:
+                self.flops += self.flop_registry[func.overloadpacket](*args, **kwargs,
+                                                                      out_val=out)
             for t in outs:
                 self.track(t)
             return out
@@ -195,9 +262,16 @@ def _counting_mode():
     return Counting
 
 
-def op_counters(fn: Any, *args: Any, **kwargs: Any) -> Dict[str, float]:
+def _local(t: Any) -> Any:
+    """A DTensor's local shard; any other tensor itself."""
+    local = getattr(t, "_local_tensor", None)
+    return local if local is not None else t
+
+
+def op_counters(fn: Any, *args: Any, device_mesh: Any = None, **kwargs: Any) -> Dict[str, Any]:
     """Counters of one call ``fn(*args, **kwargs)``, run on ``meta`` tensors
-    (the arguments' tensors must be ``meta``; nothing is allocated):
+    (the arguments' tensors must be ``meta``, or DTensors of ``meta``
+    shards; nothing is allocated):
 
       * ``flops`` — ``torch.utils.flop_counter.FlopCounterMode``: the
         products and convolutions it has formulas for (XLA's count adds
@@ -205,34 +279,57 @@ def op_counters(fn: Any, *args: Any, **kwargs: Any) -> Dict[str, float]:
       * ``bytes_accessed`` — over the aten ops the call dispatches, their
         tensor operands' and results' bytes, views counted as zero (an
         embedding lookup reads the rows it gathers, not its whole table);
-      * ``collective_bytes`` — the bytes the call's collectives return;
+      * ``collective_bytes`` — the bytes the call's collectives return, and
+        ``collectives``: per kind (``all_gather``, ``reduce_scatter``,
+        ``all_reduce``, ``all_to_all``) their count, bytes and bytes by the
+        mesh axes of the group (named from ``device_mesh``);
       * ``argument_bytes``, ``output_bytes``, ``alias_bytes`` — the
         arguments' storages, the results' new storages, the results that
         are argument storages (written in place);
       * ``peak_bytes`` — the most bytes of live storage at once, arguments
         included (each storage counted once from its creation until it is
         freed); ``temp_bytes`` = peak − arguments;
-      * ``ops`` — the aten ops dispatched."""
+      * ``ops`` — the aten ops dispatched.
+
+    With DTensor arguments (a sharded program, inside a process group of the
+    mesh's size) every counter is rank 0's local program: its shards, its
+    local ops' FLOPs and bytes, its collectives; never the DTensor-level
+    global ops (``FlopCounterMode`` would count the whole program's
+    products there, so the FLOPs come from its formulas on the local ops)."""
     import torch
     from torch.utils._pytree import tree_leaves
     from torch.utils.flop_counter import FlopCounterMode
 
-    counting = _counting_mode()()
-    arg_tensors = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+    leaves_in = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+    sharded = any(_local(t) is not t for t in leaves_in)
+    group_axes = {}
+    if device_mesh is not None:
+        group_axes = {device_mesh.get_group(name).group_name: name
+                      for name in device_mesh.mesh_dim_names}
+    counting = _counting_mode()(FlopCounterMode().flop_registry if sharded else None,
+                                group_axes)
+    arg_tensors = [_local(t) for t in leaves_in]
     for t in arg_tensors:
         if t.device.type != "meta":
             raise ValueError(f"op_counters traces meta tensors; got one on {t.device}")
         counting.track(t)
     argument = counting.cur
     arg_keys = {st._cdata for st in map(counting.storage_of, arg_tensors) if st is not None}
-    with FlopCounterMode(display=False) as flops, counting:
-        out = fn(*args, **kwargs)
+    if sharded:
+        with counting:
+            out = fn(*args, **kwargs)
+        flops = counting.flops
+    else:
+        with FlopCounterMode(display=False) as counter, counting:
+            out = fn(*args, **kwargs)
+        flops = counter.get_total_flops()
     outs = {st._cdata: st.nbytes() for st in
-            (counting.storage_of(t) for t in tree_leaves(out) if isinstance(t, torch.Tensor))
-            if st is not None}
-    return {"flops": float(flops.get_total_flops()),
+            (counting.storage_of(_local(t)) for t in tree_leaves(out)
+             if isinstance(t, torch.Tensor)) if st is not None}
+    return {"flops": float(flops),
             "bytes_accessed": float(counting.bytes_accessed),
             "collective_bytes": float(counting.collective_bytes),
+            "collectives": counting.collectives,
             "argument_bytes": float(argument),
             "output_bytes": float(sum(n for k, n in outs.items() if k not in arg_keys)),
             "alias_bytes": float(sum(n for k, n in outs.items() if k in arg_keys)),

@@ -46,7 +46,7 @@ from .. import build
 from . import ref
 
 __all__ = ["flash_attention", "FlashAttentionFn", "TILES", "HEAD_DIMS", "SOURCES", "smem_bytes",
-           "compiled", "library_smem_bytes"]
+           "compiled", "library_smem_bytes", "supports"]
 
 TILES = (64, 128)            # block_q / block_kv values the sources are compiled for
 HEAD_DIMS = (16, 32, 64, 128)
@@ -93,6 +93,15 @@ def _entry(source: str):
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     return fn
+
+
+def supports(q_shape: tuple, k_shape: tuple, dtype: torch.dtype) -> bool:
+    """Whether a kernel is built for these shapes and dtype (q (B,Sq,H,D),
+    k (B,Sk,K,D)), whatever the tiles: the dispatcher takes the plain
+    version where not."""
+    h, d, n_kv = q_shape[2], q_shape[3], k_shape[2]
+    return (dtype in SOURCES and d in HEAD_DIMS and n_kv > 0 and h % n_kv == 0
+            and q_shape[1] > 0 and k_shape[1] > 0)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_kv: int) -> None:

@@ -24,6 +24,11 @@ from . import kernel, ref
 __all__ = ["flash_attention", "decode_attention", "attention_settings",
            "AttentionKernelSettings", "workload_signature"]
 
+# calls that resolved impl "kernel": those a kernel is built for, and those of a
+# ``meta`` trace (the dry-run) whose shape none is (a sharded program's shard),
+# which the trace runs plain; on a CUDA tensor such a shape raises in the kernel
+DISPATCHED = {"kernel": 0, "no_kernel": 0}
+
 
 @tunable_component(
     name="torch_flash_attention",
@@ -74,7 +79,12 @@ def flash_attention(
     impl = impl or s["impl"]
     block_q = block_q or s["block_q"]
     block_kv = block_kv or s["block_kv"]
-    if impl == "kernel":
+    if (impl == "kernel" and q.device.type == "meta"
+            and not kernel.supports(tuple(q.shape), tuple(k.shape), q.dtype)):
+        impl = "naive"          # traced only: the card has no kernel for this shape
+        DISPATCHED["no_kernel"] += 1
+    elif impl == "kernel":
+        DISPATCHED["kernel"] += 1
         # the kernel masks ragged edges itself: its tiles need not divide
         return kernel.flash_attention(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset, block_q=block_q, block_kv=block_kv)

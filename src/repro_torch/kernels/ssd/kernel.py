@@ -44,7 +44,7 @@ import torch
 from .. import build
 from . import ref
 
-__all__ = ["ssd", "SsdFn", "CHUNKS", "STATE_DIMS", "SOURCES", "TC_HEAD_DIMS"]
+__all__ = ["ssd", "SsdFn", "CHUNKS", "STATE_DIMS", "SOURCES", "TC_HEAD_DIMS", "supports"]
 
 CHUNKS = (32, 64)              # compiled chunk lengths
 STATE_DIMS = (16, 128)         # the state sizes of hymba-1.5b and mamba2-780m
@@ -68,6 +68,15 @@ def _entry(source: str):
 def _p_slice(head_dim: int) -> int:
     """Head-dim columns per CUDA block (the kernel's P split)."""
     return 32 if head_dim % 32 == 0 else 16
+
+
+def supports(x_shape: tuple, bc_shape: tuple, dtype: torch.dtype) -> bool:
+    """Whether a kernel is built for these shapes and dtype (x (B,S,H,P), B
+    and C (B,S,G,N)): the dispatcher takes the plain version where not."""
+    h, p = x_shape[2], x_shape[3]
+    g, n = bc_shape[2], bc_shape[3]
+    return (dtype in SOURCES and n in STATE_DIMS and p > 0 and p % 16 == 0
+            and (dtype != torch.bfloat16 or p in TC_HEAD_DIMS) and g > 0 and h % g == 0)
 
 
 def _check(x, dt, A, B, C, D, chunk: int) -> None:

@@ -21,6 +21,11 @@ from . import kernel, ref
 
 __all__ = ["ssd", "ssd_decode_step", "ssd_settings", "SsdKernelSettings", "workload_signature"]
 
+# calls that resolved impl "kernel": those a kernel is built for, and those of a
+# ``meta`` trace (the dry-run) whose shape none is (a sharded program's shard),
+# which the trace runs plain; on a CUDA tensor such a shape raises in the kernel
+DISPATCHED = {"kernel": 0, "no_kernel": 0}
+
 
 @tunable_component(
     name="torch_ssd_kernel",
@@ -54,7 +59,12 @@ def ssd(x, dt, A, B, C, D=None, *, impl: Optional[str] = None, chunk: Optional[i
     s = ssd_settings.settings_for(wl)
     impl = impl or s["impl"]
     chunk = chunk or s["chunk"]
-    if impl == "kernel":
+    if (impl == "kernel" and x.device.type == "meta"
+            and not kernel.supports(tuple(x.shape), tuple(B.shape), x.dtype)):
+        impl = "chunked"          # traced only: the card has no kernel for this shape
+        DISPATCHED["no_kernel"] += 1
+    elif impl == "kernel":
+        DISPATCHED["kernel"] += 1
         # the kernel masks a ragged last chunk itself: its chunk need not divide
         return kernel.ssd(x, dt, A, B, C, D, chunk=chunk, init_state=init_state,
                           return_state=return_state)

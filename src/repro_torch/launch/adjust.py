@@ -18,6 +18,12 @@ under ``remat`` "full" or "dots" (the recompute runs the kernel again),
 times the microbatches.  Decode attention is the plain ``decode_attention``
 on every path, not the kernel: nothing to adjust.
 
+On a sharded mesh the geometry is rank 0's: its batch rows, and its query
+heads (head-parallel; its KV heads are its own, or where they do not divide
+``model`` the ones its query heads read) or its query rows against every
+key (sequence-parallel), as the kernel is launched inside the sharded
+program (the reference's per-device Q/K/V/O sizes).
+
 The backward is NOT adjusted: ``FlashAttentionFn`` recomputes
 ``naive_attention`` with autograd, so the trace already counts what the
 port runs.  The reference's fused flash backward of 15/4 traversals
@@ -27,7 +33,8 @@ scan stays counted as its plain chunked work, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,12 +42,13 @@ from ..core.telemetry import op_counters
 from ..kernels.flash_attention import ops as attn_ops
 from ..kernels.flash_attention import ref as attn_ref
 from ..models.config import ModelConfig
-from ..models.layers import dtype_of
+from ..models.layers import P, dtype_of
 from ..models.transformer import stack_settings, stack_workload
+from .mesh import Mesh
 from .shapes import Shape
 
 __all__ = ["attention_adjustment", "attn_layers_per_unit", "forward_calls_per_layer",
-           "plain_forward"]
+           "plain_forward", "local_geometry"]
 
 
 def plain_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
@@ -75,21 +83,41 @@ def forward_calls_per_layer(cfg: ModelConfig, shape: Shape, microbatches: int = 
     return microbatches * (1 if remat == "none" else 2)
 
 
-def attention_adjustment(cfg: ModelConfig, shape: Shape, microbatches: int = 1
-                         ) -> Dict[str, float]:
+def local_geometry(cfg: ModelConfig, shape: Shape, microbatches: int = 1,
+                   mesh: Optional[Mesh] = None) -> Tuple[int, int, int, int, int]:
+    """(batch, query rows, keys, query heads, KV heads) of one kernel call of
+    rank 0 on ``mesh`` (of the one device without one)."""
+    b, s = shape.global_batch // microbatches, shape.seq_len
+    h, k = cfg.n_heads, cfg.n_kv_heads
+    if mesh is None or mesh.size == 1:
+        return b, s, s, h, k
+    from ..parallel import sharding as shd
+    from .specs import cell_rules   # late import: specs imports the models' steps
+
+    rules = cell_rules(shape, mesh)
+    split = lambda e: math.prod(mesh.sizes[a] for a in shd._axes_of(e))
+    b //= split(shd.spec_for(P((b, s), ("batch", "seq")), rules, mesh)[0])
+    m = mesh.sizes.get("model", 1)
+    if h % m:                                         # sequence-parallel: own rows
+        return b, s // m, s, h, k
+    hl = h // m
+    return b, s, s, hl, k // m if k % m == 0 else max(1, hl // (h // k))
+
+
+def attention_adjustment(cfg: ModelConfig, shape: Shape, microbatches: int = 1,
+                         mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """Bytes to take off the traced total for the whole step (≥ 0) on one
-    device, and the terms it is made of."""
+    device (rank 0 of ``mesh``), and the terms it is made of."""
     from .specs import depth_units  # late import: specs imports the models' steps
 
     if cfg.attn_free or attn_layers_per_unit(cfg) == 0 or shape.kind == "decode":
         return {"delta_bytes": 0.0, "bytes_plain": 0.0, "bytes_ideal": 0.0, "attn_calls": 0}
     dt = dtype_of(cfg)
-    b = shape.global_batch // microbatches
-    s = shape.seq_len
-    q = torch.empty((b, s, cfg.n_heads, cfg.hd), dtype=dt, device="meta")
-    k = torch.empty((b, s, cfg.n_kv_heads, cfg.hd), dtype=dt, device="meta")
+    b, sq, s, h, kh = local_geometry(cfg, shape, microbatches, mesh)
+    q = torch.empty((b, sq, h, cfg.hd), dtype=dt, device="meta")
+    k = torch.empty((b, s, kh, cfg.hd), dtype=dt, device="meta")
     tiles = attn_ops.attention_settings.settings_for(
-        attn_ops.workload_signature(b, s, s, cfg.hd))
+        attn_ops.workload_signature(b, sq, s, cfg.hd))
     bytes_plain = op_counters(plain_forward, q, k, k, True, cfg.window, 0, tiles["block_q"],
                               tiles["block_kv"])["bytes_accessed"]
     per_tensor = q.numel() * q.element_size()

@@ -27,10 +27,18 @@ on the host.  On ``one`` (the card of :data:`.mesh.HW`):
     ``collective_s``, ``bottleneck``, ``step_time_bound_s``,
     ``useful_flops_ratio`` and ``roofline_fraction``.
 
-On the reference's production meshes (``single``, ``multi``) a sharded
-program cannot be traced on one card: the record gives each device's state
-bytes (parameters, optimizer state, caches, batch) under the sharding rules,
-status ``state_only``.  The reference's ``f32_shadow_bytes`` and
+On the reference's production meshes (``single``, ``multi``) the cell is
+the sharded program, traced the same way as rank 0's local program: inside
+:func:`.mesh.traced_group` (a ``fake`` process group of the mesh's size at
+rank 0, destroyed when the cell ends) its arguments are meta DTensors
+placed by the cell's rules, the step runs on DTensors, and every counter is
+rank 0's: its shards' peak, its local ops' FLOPs and bytes, its
+collectives' bytes by kind and by mesh axis (``counters["collectives"]``).
+``per_device_bytes`` and ``fits`` are one H100's; ``memory["state"]``
+breaks down the parameters, optimizer state, caches and batch a device
+holds.  ``collective_s`` divides by one card's link: NVLink within an
+8-card node, the network on ``single`` and ``multi``
+(:func:`.mesh.link_bw`).  The reference's ``f32_shadow_bytes`` and
 ``tpu_memory_estimate_bytes`` correct an XLA-CPU artefact and are not
 carried over.  Results go to ``results/torch/dryrun/`` (resumable).
 """
@@ -53,17 +61,18 @@ from ..core.telemetry import op_counters, os_counters
 from ..kernels.flash_attention import kernel as attn_kernel
 from ..kernels.flash_attention import ops as attn_ops
 from ..kernels.ssd import kernel as ssd_kernel
+from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd import ref as ssd_ref
 from ..models.layers import dtype_of
 from ..parallel import sharding as shd
 from .adjust import attention_adjustment, plain_forward
-from .mesh import HW, MESHES, get_mesh
+from .mesh import HW, MESHES, get_mesh, link_bw, traced_group
 from .roofline import DRYRUN_DIR
-from .shapes import SHAPES, cell_status
+from .shapes import SHAPES, Shape, cell_status
 from .specs import CellPlan, build_cell, cell_rules, cell_specs, depth_units
 from .tuning import SINGLETONS, apply_overrides, current_settings, parse_override, split_target
 
-__all__ = ["run_cell", "trace", "extrapolated_counters", "kernel_stand_ins",
+__all__ = ["run_cell", "trace", "extrapolated_counters", "kernel_stand_ins", "state_bytes",
            "default_microbatches", "cell_path", "OUT_DIR", "COUNTER_KEYS"]
 
 OUT_DIR = Path(DRYRUN_DIR)
@@ -198,30 +207,53 @@ def trace(plan: CellPlan, mode: str) -> Dict[str, float]:
     """:func:`op_counters` of one call of the plan's step, the kernels stood
     in by ``mode`` (:func:`kernel_stand_ins`)."""
     with kernel_stand_ins(mode):
-        return op_counters(plan.step, *plan.args)
+        return op_counters(plan.step, *plan.args, device_mesh=plan.device_mesh)
+
+
+def _extrapolate_collectives(c1: Dict[str, Any], c2: Dict[str, Any], K: int) -> Dict[str, Any]:
+    """Per kind, count, bytes and bytes by axes at K units from 1 and 2."""
+    out: Dict[str, Any] = {}
+    for kind in sorted(set(c1) | set(c2)):
+        a = c1.get(kind, {"count": 0, "bytes": 0.0, "axes": {}})
+        b = c2.get(kind, {"count": 0, "bytes": 0.0, "axes": {}})
+        lin = lambda x, y: x + (K - 1) * (y - x)
+        out[kind] = {"count": lin(a["count"], b["count"]), "bytes": lin(a["bytes"], b["bytes"]),
+                     "axes": {ax: lin(a["axes"].get(ax, 0.0), b["axes"].get(ax, 0.0))
+                              for ax in sorted(set(a["axes"]) | set(b["axes"]))}}
+    return out
 
 
 def extrapolated_counters(arch: str, shape_name: str, microbatches: int, *,
-                          cfg=None, shape=None) -> tuple:
+                          cfg=None, shape=None, mesh: Any = "one",
+                          device_mesh=None) -> tuple:
     """(counters at the model's depth, the k = 1 and k = 2 passes, units K):
-    ``c(K) = c(1) + (K − 1)·(c(2) − c(1))``, exact for identical units."""
+    ``c(K) = c(1) + (K − 1)·(c(2) − c(1))``, exact for identical units; on a
+    sharded mesh (``device_mesh`` from :func:`.mesh.traced_group`) rank 0's,
+    and ``collectives`` extrapolated the same way."""
     cfg = cfg or get_config(arch)
     K = depth_units(cfg)
-    cs = [trace(build_cell(arch, shape_name, "one", microbatches=microbatches, depth_k=k,
-                           cfg=cfg, shape=shape), "plain") for k in (1, 2)]
+    cs = [trace(build_cell(arch, shape_name, mesh, microbatches=microbatches, depth_k=k,
+                           cfg=cfg, shape=shape, device_mesh=device_mesh), "plain")
+          for k in (1, 2)]
     c = {key: cs[0][key] + (K - 1) * (cs[1][key] - cs[0][key]) for key in COUNTER_KEYS}
+    if device_mesh is not None:
+        c["collectives"] = _extrapolate_collectives(cs[0]["collectives"], cs[1]["collectives"],
+                                                    K)
     return c, cs, K
 
 
-def _state_only(rec: Dict[str, Any], cfg, shape, mesh) -> None:
-    """Each device's state bytes under the mesh's sharding rules."""
+def state_bytes(cfg, shape, mesh) -> Dict[str, float]:
+    """One device's state under the mesh's sharding rules: parameters and
+    optimizer state with the step counter (train), caches (decode) and the
+    batch."""
     rules = cell_rules(shape, mesh)
     dt = dtype_of(cfg)
     specs = cell_specs(cfg, shape)
     parts: Dict[str, float] = {}
     if shape.kind == "train":
         parts["params"] = shd.tree_local_bytes(specs["state"]["params"], rules, mesh, dt)
-        parts["opt"] = shd.tree_local_bytes(specs["state"]["opt"], rules, mesh, dt)
+        parts["opt"] = shd.tree_local_bytes([specs["state"]["opt"], specs["state"]["step"]],
+                                            rules, mesh, dt)
         parts["batch"] = shd.tree_local_bytes(specs["batch"], rules, mesh, dt)
     else:
         parts["params"] = shd.tree_local_bytes(specs["params"], rules, mesh, dt)
@@ -231,10 +263,7 @@ def _state_only(rec: Dict[str, Any], cfg, shape, mesh) -> None:
             parts["caches"] = shd.tree_local_bytes(specs["dstate"]["caches"], rules, mesh, dt)
             parts["batch"] = shd.tree_local_bytes(
                 {k: v for k, v in specs["dstate"].items() if k != "caches"}, rules, mesh, dt)
-    rec["status"] = "state_only"
-    rec["memory"] = {k: float(v) for k, v in parts.items()}
-    rec["per_device_bytes"] = float(sum(parts.values()))
-    rec["fits"] = bool(rec["per_device_bytes"] < HW["memory_bytes"])
+    return {k: float(v) for k, v in parts.items()}
 
 
 def run_cell(arch: str, shape_name: str, mesh: str = "one", *, microbatches: int = 0,
@@ -245,10 +274,10 @@ def run_cell(arch: str, shape_name: str, mesh: str = "one", *, microbatches: int
     named config and shape (reduced cells)."""
     if microbatches <= 0:
         microbatches = default_microbatches(arch, shape_name)
-    m = get_mesh(mesh)
+    m = get_mesh(mesh) if isinstance(mesh, str) else mesh
     with _temp_settings(overrides or {}):
         rec: Dict[str, Any] = {
-            "arch": arch, "shape": shape_name, "mesh": mesh, "chips": m.size,
+            "arch": arch, "shape": shape_name, "mesh": m.name, "chips": m.size,
             "settings": current_settings(), "microbatches": microbatches, "status": "ok",
         }
         cfg = cfg or get_config(arch)
@@ -258,15 +287,16 @@ def run_cell(arch: str, shape_name: str, mesh: str = "one", *, microbatches: int
             rec["status"] = "skip"
             rec["reason"] = reason
             return rec
-        if m.size > 1:
-            _state_only(rec, cfg, shape, m)
-            return rec
-        applied, undo = _redeploy_stored_cell_configs(f"{arch}/{shape_name}/{mesh}")
+        applied, undo = _redeploy_stored_cell_configs(f"{arch}/{shape_name}/{m.name}")
         if applied:
             rec["stored_cell_settings"] = applied
             rec["settings"] = current_settings()  # refresh: reflect the redeploy
         try:
-            _plan_on_one(rec, arch, shape_name, cfg, shape, microbatches)
+            if m.size == 1:
+                _plan(rec, arch, shape_name, cfg, shape, microbatches, m, None)
+            else:
+                with traced_group(m) as dm:
+                    _plan(rec, arch, shape_name, cfg, shape, microbatches, m, dm)
             rec["os_counters"] = os_counters()
         except Exception as e:  # noqa: BLE001 — a failing cell is recorded, the sweep goes on
             rec["status"] = "error"
@@ -277,21 +307,32 @@ def run_cell(arch: str, shape_name: str, mesh: str = "one", *, microbatches: int
     return rec
 
 
-def _plan_on_one(rec: Dict[str, Any], arch: str, shape_name: str, cfg, shape,
-                 microbatches: int) -> None:
+def _plan(rec: Dict[str, Any], arch: str, shape_name: str, cfg, shape, microbatches: int,
+          m, device_mesh) -> None:
+    """The record of a cell on mesh ``m``: one device's, or on a sharded mesh
+    (``device_mesh``) rank 0's."""
     t0 = time.perf_counter()
-    plan = build_cell(arch, shape_name, "one", microbatches=microbatches, cfg=cfg, shape=shape)
+    plan = build_cell(arch, shape_name, m, microbatches=microbatches, cfg=cfg,
+                      shape=shape, device_mesh=device_mesh)
     rec["meta"] = dict(plan.meta, hw=HW["name"], hw_fingerprint=HW["fingerprint"])
+    ops = {"flash_attention": attn_ops.DISPATCHED, "ssd": ssd_ops.DISPATCHED}
+    before = {k: dict(d) for k, d in ops.items()}
     prod = trace(plan, "alloc")
+    # each kernel's calls in the step: those a kernel is built for, and those at
+    # a local shape none is (traced plain here; they would raise on the card)
+    routes = {k: {r: d[r] - before[k][r] for r in d} for k, d in ops.items()}
     t1 = time.perf_counter()
     rec["wall"] = {"production_trace_s": t1 - t0}
     rec["memory"] = {"argument_size_in_bytes": prod["argument_bytes"],
                      "output_size_in_bytes": prod["output_bytes"],
                      "temp_size_in_bytes": prod["temp_bytes"],
                      "alias_size_in_bytes": prod["alias_bytes"]}
+    if device_mesh is not None:
+        rec["memory"]["state"] = state_bytes(cfg, shape, m)
     rec["per_device_bytes"] = prod["peak_bytes"]
     rec["fits"] = bool(prod["peak_bytes"] < HW["memory_bytes"])
-    c, cs, K = extrapolated_counters(arch, shape_name, microbatches, cfg=cfg, shape=shape)
+    c, cs, K = extrapolated_counters(arch, shape_name, microbatches, cfg=cfg, shape=shape,
+                                     mesh=m, device_mesh=device_mesh)
     rec["wall"]["counter_passes_s"] = time.perf_counter() - t1
     rec["counter_passes"] = {"k1": {k: cs[0][k] for k in COUNTER_KEYS},
                              "k2": {k: cs[1][k] for k in COUNTER_KEYS}, "units": K}
@@ -299,15 +340,17 @@ def _plan_on_one(rec: Dict[str, Any], arch: str, shape_name: str, cfg, shape,
     impl = attn_ops.attention_settings.settings_for(
         attn_ops.workload_signature(b, shape.seq_len, shape.seq_len, cfg.hd or 1))["impl"]
     if impl == "kernel" and not cfg.attn_free and shape.kind != "decode":
-        adj = attention_adjustment(cfg, shape, microbatches)
+        adj = attention_adjustment(cfg, shape, microbatches, m)
         c["bytes_accessed"] = max(0.0, c["bytes_accessed"] - adj["delta_bytes"])
         rec["kernel_adjustment"] = adj
+    if device_mesh is not None:
+        c["kernels"] = routes
     rec["counters"] = c
     peak = HW["peak_flops_bf16"] if dtype_of(cfg) == torch.bfloat16 else HW["peak_flops_f32"]
     rec["roofline"] = {
         "compute_s": c["flops"] / peak,
         "memory_s": c["bytes_accessed"] / HW["hbm_bw"],
-        "collective_s": c["collective_bytes"] / HW["nvlink_bw"],
+        "collective_s": c["collective_bytes"] / link_bw(m),
     }
     terms = rec["roofline"]
     rec["bottleneck"] = max(terms, key=terms.get)
@@ -336,6 +379,9 @@ def main() -> int:
                     help="MLOS tunable override (repeatable)")
     ap.add_argument("--out", default=str(OUT_DIR))
     ap.add_argument("--tag", default="", help="suffix for result files (perf experiments)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="trace each config's reduced() at a small shape (seq 64, two rows a "
+                         "data shard): a smoke run that fits any host")
     ap.add_argument("--store", default=None,
                     help="config store root whose cell entries are redeployed (default: the "
                          "repo's)")
@@ -365,7 +411,13 @@ def main() -> int:
                     print(f"[cached] {arch:24s} {shape:12s} {mesh:6s} {rec['status']}")
                     continue
                 t0 = time.perf_counter()
-                rec = run_cell(arch, shape, mesh, microbatches=args.microbatches)
+                small = {}
+                if args.reduced:
+                    m = get_mesh(mesh)
+                    rows = 2 * m.sizes.get("data", 1) * m.sizes.get("pod", 1)
+                    small = {"cfg": get_config(arch).reduced(),
+                             "shape": Shape(shape, SHAPES[shape].kind, 64, rows)}
+                rec = run_cell(arch, shape, mesh, microbatches=args.microbatches, **small)
                 rec["tunable_overrides"] = args.set
                 path.write_text(json.dumps(rec, indent=1))
                 dt = time.perf_counter() - t0
@@ -377,8 +429,6 @@ def main() -> int:
                             f" memory={r['memory_s']*1e3:.2f}ms"
                             f" coll={r['collective_s']*1e3:.2f}ms"
                             f" bound={rec['bottleneck'].split('_')[0]}")
-                elif rec["status"] == "state_only":
-                    msg += f" state={rec['per_device_bytes']/1e9:.2f}GB"
                 elif rec["status"] == "error":
                     n_err += 1
                     msg += " " + rec["error"][:120]

@@ -11,7 +11,9 @@ after ``patience`` consecutive non-``improved`` verdicts.  Each experiment
 is a fresh subprocess of the port's dry-run (``repro_torch.launch.dryrun``)
 writing a tagged result file; this driver only orchestrates and
 summarizes.  The candidates and their ranking are the reference's under
-the port's component names; the memory gate is the card's memory.  The
+the port's component names; the memory gate is the card's memory, on every
+mesh (on ``single`` and ``multi`` each device is an H100, the bound rank
+0's, :mod:`.dryrun`).  The
 winners persist under the cell as the workload context and under the
 card's fingerprint from :data:`.mesh.HW`, wherever the hillclimb ran: the
 bound is the card's, so a tuned entry for the card is never filed under

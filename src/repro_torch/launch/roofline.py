@@ -5,7 +5,8 @@ The port of ``repro/launch/roofline.py``, over the card of :data:`.mesh.HW`:
 
     compute_s    = traced FLOPs (per device)      / 989e12    (H100 bf16 dense peak)
     memory_s     = traced bytes (per device)      / 3.35e12   (HBM3)
-    collective_s = collective bytes (per device)  / 450e9     (NVLink 4, one way)
+    collective_s = collective bytes (per device)  / 450e9     (NVLink 4, one way, within a node)
+                                                  / 50e9      (NDR InfiniBand: single, multi)
 
 The counters come from the dry-run's depth-extrapolated traces (see
 ``dryrun.py``); the bottleneck is the largest term; the roofline fraction =
@@ -108,25 +109,24 @@ def _fmt_s(x: float) -> str:
 
 
 def render_table(cells: List[Dict[str, Any]], mesh: str = "one") -> str:
+    """The reference's table; on a sharded mesh a last column adds the
+    collective bytes a device moves a step."""
+    sharded = mesh != "one"
     rows = []
     head = ("| arch | shape | status | mem | fits | compute | memory | collective "
-            "| bound | MODEL/traced flops | roofline frac |")
-    sep = "|" + "---|" * 11
+            "| bound | MODEL/traced flops | roofline frac |" + (" coll bytes |" if sharded else ""))
+    sep = "|" + "---|" * (12 if sharded else 11)
     rows.append(head)
     rows.append(sep)
+    blank = " – |" * (9 if sharded else 8)
     for c in cells:
         if c.get("mesh") != mesh:
             continue
         if c["status"] == "skip":
-            rows.append(f"| {c['arch']} | {c['shape']} | SKIP | – | – | – | – | – | – | – | – |")
+            rows.append(f"| {c['arch']} | {c['shape']} | SKIP |" + blank)
             continue
         if c["status"] == "error":
-            rows.append(f"| {c['arch']} | {c['shape']} | ERROR | – | – | – | – | – | – | – | – |")
-            continue
-        if c["status"] == "state_only":
-            rows.append(f"| {c['arch']} | {c['shape']} | state only "
-                        f"| {c['per_device_bytes']/1e9:.1f} GB | {'✓' if c['fits'] else '✗'} "
-                        "| – | – | – | – | – | – |")
+            rows.append(f"| {c['arch']} | {c['shape']} | ERROR |" + blank)
             continue
         r = c["roofline"]
         rows.append(
@@ -135,7 +135,8 @@ def render_table(cells: List[Dict[str, Any]], mesh: str = "one") -> str:
             f"| {'✓' if c['fits'] else '✗'} "
             f"| {_fmt_s(r['compute_s'])} | {_fmt_s(r['memory_s'])} | {_fmt_s(r['collective_s'])} "
             f"| {c['bottleneck'].replace('_s','')} "
-            f"| {c['useful_flops_ratio']:.3f} | {c.get('roofline_fraction', 0.0):.4f} |")
+            f"| {c['useful_flops_ratio']:.3f} | {c.get('roofline_fraction', 0.0):.4f} |"
+            + (f" {c['counters']['collective_bytes'] / 1e9:.2f} GB |" if sharded else ""))
     return "\n".join(rows)
 
 

@@ -6,10 +6,11 @@ body of :mod:`repro_torch.runtime.steps` (``make_train_step``,
 ``make_prefill_step``, ``make_decode_step``: the plain, uncaptured bodies,
 not the server's graphs or the registry's steps) and its arguments as
 ``meta`` tensors (shapes and dtypes, no storage), built from the spec
-trees.  The reference's argument structs carry shardings; a cell here is
-planned on the one card (``one``).  :func:`cell_specs` gives the same
-arguments as spec trees, from which the dry-run sizes one device's shard on
-the reference's production meshes.
+trees.  On a sharded mesh (``single``, ``multi``) the arguments are meta
+DTensors placed by the cell's rules on the ``DeviceMesh`` of
+:func:`.mesh.traced_group`, and the step runs as rank 0's local program of
+the sharded step (:mod:`repro_torch.parallel.sharding`).
+:func:`cell_specs` gives the same arguments as spec trees.
 
 :func:`model_flops`, :func:`flops_param_count`, :func:`depth_units` and
 :func:`scaled_config` are the reference's, number for number.
@@ -30,8 +31,8 @@ from ..runtime import steps as rt_steps
 from .mesh import Mesh, get_mesh
 from .shapes import SHAPES, Shape, cell_status
 
-__all__ = ["CellPlan", "build_cell", "cell_specs", "meta_tree", "model_flops",
-           "flops_param_count", "scaled_config", "depth_units", "cell_rules"]
+__all__ = ["CellPlan", "build_cell", "plan_cell", "cell_specs", "meta_tree",
+           "model_flops", "flops_param_count", "scaled_config", "depth_units", "cell_rules"]
 
 
 def depth_units(cfg: ModelConfig) -> int:
@@ -89,6 +90,7 @@ class CellPlan:
     rules: shd.Rules
     meta: Dict[str, Any]
     mesh: Mesh
+    device_mesh: Any = None
 
 
 def cell_rules(shape: Shape, mesh: Mesh) -> shd.Rules:
@@ -136,17 +138,18 @@ def meta_tree(spec_tree: Any, default_dtype: torch.dtype) -> Any:
     return [meta_tree(v, default_dtype) for v in spec_tree]
 
 
-def build_cell(arch: str, shape_name: str, mesh: str = "one", *, microbatches: int = 1,
+def build_cell(arch: str, shape_name: str, mesh: Any = "one", *, microbatches: int = 1,
                depth_k: Optional[int] = None, cfg: Optional[ModelConfig] = None,
-               shape: Optional[Shape] = None) -> CellPlan:
-    """The cell's plain step body and its ``meta`` arguments, on a mesh of one
-    device (a sharded program is not traced: the port has no multi-card
-    host yet).  ``depth_k`` cuts the model to k depth units; ``cfg`` and
+               shape: Optional[Shape] = None, device_mesh: Any = None) -> CellPlan:
+    """The cell's plain step body and its ``meta`` arguments.  On a mesh of
+    more than one device the arguments are meta DTensors on ``device_mesh``,
+    the ``DeviceMesh`` of :func:`.mesh.traced_group` (the step must run
+    inside it).  ``depth_k`` cuts the model to k depth units; ``cfg`` and
     ``shape`` stand in for the named config and shape (reduced cells)."""
-    m = get_mesh(mesh)
-    if m.size != 1:
-        raise ValueError(f"mesh {mesh!r} has {m.size} devices: a sharded step is not traced "
-                         "(the dry-run sizes its state from the sharding rules)")
+    m = get_mesh(mesh) if isinstance(mesh, str) else mesh
+    if m.size != 1 and device_mesh is None:
+        raise ValueError(f"mesh {m.name!r} has {m.size} devices: build its cell inside "
+                         "launch.mesh.traced_group and pass its device_mesh")
     cfg = cfg or get_config(arch)
     if depth_k is not None:
         cfg = scaled_config(cfg, depth_k).validate()
@@ -156,14 +159,23 @@ def build_cell(arch: str, shape_name: str, mesh: str = "one", *, microbatches: i
         raise ValueError(f"cell ({arch}, {shape_name}) skipped: {reason}")
     rules = cell_rules(shape, m)
     meta: Dict[str, Any] = {
-        "arch": arch, "shape": shape_name, "mesh": mesh,
+        "arch": arch, "shape": shape_name, "mesh": m.name,
         "n_params": cfg.param_count(), "n_active_params": cfg.active_param_count(),
         "model_flops": model_flops(cfg, shape), "chips": m.size,
         "depth_units": depth_units(cfg), "microbatches": microbatches,
     }
     dt = dtype_of(cfg)
     args = {k: meta_tree(v, dt) for k, v in cell_specs(cfg, shape).items()}
+    if device_mesh is not None:
+        args = shd.distribute(args, cell_specs(cfg, shape), rules, device_mesh)
+    return plan_cell(arch, shape, cfg, args, m, rules, meta, microbatches, device_mesh)
 
+
+def plan_cell(arch: str, shape: Shape, cfg: ModelConfig, args: Dict[str, Any], m: Mesh,
+              rules: shd.Rules, meta: Dict[str, Any], microbatches: int = 1,
+              device_mesh: Any = None) -> CellPlan:
+    """The cell's step body over ``args`` (:func:`cell_specs`' trees of
+    tensors in the stacked layout, placed or not), its stacks unstacked."""
     if shape.kind == "train":
         state = args["state"]
         state["params"] = M.unstack_blocks(state["params"], cfg)
@@ -172,25 +184,28 @@ def build_cell(arch: str, shape_name: str, mesh: str = "one", *, microbatches: i
         raw_train = rt_steps.make_train_step(cfg, microbatches=microbatches)
 
         def train_step(state, batch, lr_scale=1.0):
-            with shd.use_rules(m, rules):
+            with shd.use_rules(m, rules, device_mesh):
                 return raw_train(state, batch, lr_scale)
 
-        return CellPlan(arch, shape, train_step, (state, args["batch"]), rules, meta, m)
+        return CellPlan(arch, shape, train_step, (state, args["batch"]), rules, meta, m,
+                        device_mesh)
 
     params = M.unstack_blocks(args["params"], cfg)
     if shape.kind == "prefill":
         raw_prefill = rt_steps.make_prefill_step(cfg, cache_capacity=shape.seq_len)
 
         def prefill_step(params, batch):
-            with shd.use_rules(m, rules), torch.no_grad():
+            with shd.use_rules(m, rules, device_mesh), torch.no_grad():
                 return raw_prefill(params, batch)
 
-        return CellPlan(arch, shape, prefill_step, (params, args["batch"]), rules, meta, m)
+        return CellPlan(arch, shape, prefill_step, (params, args["batch"]), rules, meta, m,
+                        device_mesh)
 
     raw_decode = rt_steps.make_decode_step(cfg)
 
     def decode_step(params, dstate):
-        with shd.use_rules(m, rules), torch.no_grad():
+        with shd.use_rules(m, rules, device_mesh), torch.no_grad():
             return raw_decode(params, dstate)
 
-    return CellPlan(arch, shape, decode_step, (params, args["dstate"]), rules, meta, m)
+    return CellPlan(arch, shape, decode_step, (params, args["dstate"]), rules, meta, m,
+                    device_mesh)

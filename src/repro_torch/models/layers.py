@@ -3,7 +3,11 @@
 Parameters are declared via :class:`P` leaf specs carrying *logical axis*
 names, as in the reference package (``repro/models/layers.py``).  One spec
 tree is the source of truth for initialization and for the layouts the
-parity tests compare.  Everything here is a plain function on tensors.
+parity tests compare.  Everything here is a plain function on tensors.  In
+a sharded program the MLP runs on each rank's shards: the sequence
+gathered, ``d_ff`` split over ``model`` and every data axis that carries no
+batch rows, a partial sum over them reduced into the residual's layout (a
+decode gathers its few rows instead and keeps the weights where they are).
 """
 from __future__ import annotations
 
@@ -119,7 +123,12 @@ def apply_norm(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfi
             y = y * params["scale"].float()
             if "bias" in params:
                 y = y + params["bias"].float()
-    return y.to(x.dtype)
+    y = y.to(x.dtype)
+    if y.dim() == 3:      # the normed activations keep the residual's layout
+        from ..parallel.sharding import constrain   # local: sharding imports this module
+
+        y = constrain(y, ("batch", "seq", None))
+    return y
 
 
 # ----------------------------------------------------------------------- MLPs
@@ -144,6 +153,16 @@ def mlp_params(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, P]:
 
 
 def apply_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    from ..parallel import sharding as shd
+
+    if shd.sharded_mesh() is not None:
+        return _mlp_sharded(params, x, cfg)
+    y = _mlp_body(params, x, cfg)
+    return y + params["bo"] if "bo" in params else y
+
+
+def _mlp_body(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP up to ``bo``, on whole weights or on a rank's ``d_ff`` shards."""
     if cfg.mlp == "swiglu":
         h = F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
         return h @ params["wo"]
@@ -151,10 +170,35 @@ def apply_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     if "bi" in params:
         h = h + params["bi"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)  # jax.nn.gelu defaults to tanh
-    y = h @ params["wo"]
-    if "bo" in params:
-        y = y + params["bo"]
-    return y
+    return h @ params["wo"]
+
+
+def _mlp_sharded(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """:func:`apply_mlp` on each rank's shards (module docstring)."""
+    from ..parallel import sharding as shd
+
+    bd = shd.layout_of(x).dims[0]
+    batch = shd._axes_of(bd)
+    f_dim = params["wo"].shape[0]
+    ff = shd.tp_axes(batch, f_dim)
+    stored = shd._axes_of(shd.layout_of(params["wo"]).dims[0])   # ff as the rules keep it
+    sizes = shd.mesh_sizes(shd.sharded_mesh())
+    matrices = sum(params[n].dim() == 2 for n in params)
+    if set(stored) & set(batch) and x.shape[0] * x.shape[1] <= \
+            matrices * f_dim // math.prod(sizes[a] for a in ff):
+        # fewer rows than the weight columns a regather would move (a
+        # decode): the rows are gathered, the weights stay where they are
+        bd, ff = None, stored
+    f = shd.entry(ff)
+    w_in = {name: shd.Layout((None, f) if name.startswith("wi") else (f, None) if name == "wo"
+                             else (f,))
+            for name in params if name != "bo"}
+
+    y = shd.local_call(lambda p, xl: _mlp_body(p, xl, cfg), shd.Layout((bd, None, None), ff),
+                       (w_in, shd.Layout((bd, None, None))), {n: params[n] for n in w_in}, x)
+    y = shd.constrain(y, ("batch", "seq", None))
+    return y + params["bo"] if "bo" in params else y
 
 
 # -------------------------------------------------------------------- rotary

@@ -38,7 +38,11 @@ Training: :func:`loss_fn` is the next-token cross-entropy over sequence
 chunks of ``torch_layer_stack.loss_chunk`` (:func:`_chunked_ce`), so the
 (B, S, V) logits are never materialized when the sequence is longer than
 a chunk; each chunk body is recomputed in the backward pass; a MoE model
-adds ``MOE_AUX_WEIGHT`` times the balance loss summed over its layers.  The
+adds ``MOE_AUX_WEIGHT`` times the balance loss summed over its layers.  In a
+sharded program the logits are vocab-parallel (the reference's layout): each
+rank computes its vocabulary shard's logits, and the cross-entropy combines
+the shards' log-sum-exps and the label logit found by comparing each
+column's global index with the label (the reference's iota compare).  The
 embedding lookup is ``F.embedding``, whose gradient on the card sorts the
 token ids and sums each id's rows in a fixed order (no float atomics), so
 a train step gives the same bits every time it runs on the same inputs.
@@ -51,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
+from ..parallel import sharding as shd
 from ..tree import leaves
 from .attention import attn_cache_spec
 from .config import ModelConfig
@@ -178,7 +183,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device: Union[str,
 
 # ------------------------------------------------------------------- forward
 def _embed(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, params["embed"])
+    if shd.sharded_mesh() is not None:
+        return _embed_sharded(params["embed"], tokens)
+    return shd.constrain(F.embedding(tokens, params["embed"]), ("batch", "seq", None))
+
+
+def _embed_sharded(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Vocab-parallel lookup: each rank reads the rows of its vocabulary
+    shard (zeros for the others' tokens), a partial sum over ``model``
+    reduced into the residual's layout."""
+    bd = shd.layout_of(tokens).dims[0]
+    v_ax = shd.layout_of(table).dims[0]
+
+    def body(tl, tok):
+        first = shd.axis_rank("model") * tl.shape[0] if v_ax else 0
+        rel = tok - first
+        here = (rel >= 0) & (rel < tl.shape[0])
+        return F.embedding(rel.clamp(0, tl.shape[0] - 1), tl) * here[..., None].to(tl.dtype)
+
+    x = shd.local_call(body, shd.Layout((bd, None, None), (v_ax,) if v_ax else ()),
+                       (shd.Layout((v_ax, None)), shd.Layout((bd, None))), table, tokens)
+    return shd.constrain(x, ("batch", "seq", None))
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
@@ -196,9 +221,28 @@ def _out_weight(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
     return params["out"] if not cfg.tie_embeddings else params["embed"].T
 
 
+def _vocab_logits(h: torch.Tensor, w: torch.Tensor, vocab: int) -> torch.Tensor:
+    """f32 logits of each rank's vocabulary shard (the padded columns masked
+    to −1e30), a DTensor sharded over ``model`` on its last dimension."""
+    bd = shd.layout_of(h).dims[0]
+    v_ax = shd.layout_of(w).dims[1]
+
+    def body(hl, wl):
+        logits = (hl @ wl).float()
+        first = shd.axis_rank("model") * wl.shape[1] if v_ax else 0
+        cols = first + torch.arange(wl.shape[1], device=hl.device)
+        return torch.where(cols < vocab, logits, -1e30)
+
+    lay = shd.Layout((bd, None, v_ax))
+    return shd.local_call(body, lay, (shd.Layout((bd, None, None)), shd.Layout((None, v_ax))),
+                          h, w)
+
+
 def logits_fn(params: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Full f32 logits; the padded vocab is masked to −1e30 (not −inf, so an
     argmax over a row never meets a tie with a masked entry)."""
+    if shd.sharded_mesh() is not None:
+        return _vocab_logits(h, _out_weight(params, cfg), cfg.vocab_size)
     logits = (h @ _out_weight(params, cfg)).float()
     if cfg.padded_vocab != cfg.vocab_size:
         mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
@@ -221,6 +265,33 @@ def _ce_chunk(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab: int
     return torch.sum((lse - ll) * valid), torch.sum(valid)
 
 
+def _ce_chunk_sharded(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vocab: int):
+    """:func:`_ce_chunk` on vocab-parallel logits: each shard's log-sum-exp,
+    gathered and combined, and the label logit as a sum over the shards of
+    the column whose global index is the label."""
+    logits = _vocab_logits(h, w, vocab)
+    bd, v_ax = shd.layout_of(logits).dims[0], shd.layout_of(logits).dims[2]
+    labels = shd.constrain(labels, ("batch", None))
+
+    def body(lg, lb):
+        first = shd.axis_rank("model") * lg.shape[-1] if v_ax else 0
+        cols = first + torch.arange(lg.shape[-1], device=lg.device)
+        ll = torch.sum(torch.where(cols == lb.clamp(min=0)[..., None], lg, 0.0), dim=-1)
+        return torch.logsumexp(lg, dim=-1, keepdim=True), ll
+
+    parts, ll = shd.local_call(body, (shd.Layout((bd, None, v_ax)),
+                                      shd.Layout((bd, None), (v_ax,) if v_ax else ())),
+                               (shd.Layout((bd, None, v_ax)), shd.Layout((bd, None))),
+                               logits, labels)
+    lse = torch.logsumexp(shd.constrain(parts, ("batch", None, None)), dim=-1)
+    ll = shd.constrain(ll, ("batch", None))
+    valid = (labels >= 0).float()
+    # each sum whole on every rank: the chunks' ratio is of the sums, never a
+    # sum of the shards' ratios
+    return (shd.constrain(torch.sum((lse - ll) * valid), ()),
+            shd.constrain(torch.sum(valid), ()))
+
+
 def _chunked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """Next-token CE over sequence chunks of ``loss_chunk`` (halved until it
@@ -231,14 +302,18 @@ def _chunked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         stack_workload(cfg.family, b, s, cfg.n_layers))["loss_chunk"], s)
     while s % chunk:
         chunk //= 2
+    ce_chunk = _ce_chunk
+    if shd.sharded_mesh() is not None:      # the sequence gathered once, not per chunk
+        h, labels = shd.constrain(h, ("batch", None, None)), shd.constrain(labels, ("batch", None))
+        ce_chunk = _ce_chunk_sharded
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
         args = (h[:, c0:c0 + chunk], w, labels[:, c0:c0 + chunk], cfg.vocab_size)
         if chunk == s or not torch.is_grad_enabled():
-            part, n = _ce_chunk(*args)
+            part, n = ce_chunk(*args)
         else:
-            part, n = _ckpt.checkpoint(_ce_chunk, *args, use_reentrant=False)
+            part, n = _ckpt.checkpoint(shd.carry_rules(ce_chunk), *args, use_reentrant=False)
         nll, cnt = nll + part, cnt + n
     return nll / torch.clamp(cnt, min=1.0)
 

@@ -9,11 +9,25 @@ The port of ``repro/models/moe.py`` on one device.  Dispatch strategies
     ones into an (E, C, d) buffer, a batched per-expert SwiGLU runs over the
     buffer, and each token sums its k results weighted by the gate (0 for a
     dropped one).
-  * ``local_tp`` — the reference's shard_map body without a mesh: the same
-    values as ``gather``, so the same body here.
+  * ``local_tp`` — the reference's shard_map body: without a sharded mesh
+    the same values as ``gather``, so the same body here.
   * ``dense``    — every token through every expert, masked combine: the
     exact no-drop oracle.
   * ``auto``     — ``gather`` (the reference's choice without a mesh).
+
+In a sharded program ``auto`` and ``local_tp`` run :func:`_moe_shard_map`
+(the reference's ``_moe_shard_map`` as a ``local_map``): the batch goes on
+the largest prefix of (``pod``, ``data``) that divides it, the expert
+weights are split along ff over ``model`` plus every data axis that
+carries no batch rows (the rest all-gathered once at the boundary), each
+rank runs the capacity dispatch on its own tokens (a capacity of its
+tokens, GShard's per-group semantics), and its partial sum over the ff
+shards is reduced into the residual's layout; ``aux`` is averaged over
+every axis.  The tokens are the same on every rank of the ff axes: the
+sequence is gathered over ``model`` when ``model`` splits ff.  (The
+reference keeps the sequence on ``model`` there too and sums expert
+outputs of different tokens across ``model``; ROADMAP, faults.)
+``gather`` and ``dense`` run the same local body with their own dispatch.
 
 Every shape follows from (T, E, k, capacity factor) and nothing reads a
 value back to the host: no ``nonzero``, boolean-mask indexing, ``bincount``
@@ -48,6 +62,7 @@ import torch.nn.functional as F
 from ..core.configstore import bucket_pow2
 from ..core.registry import MetricSpec, tunable_component
 from ..core.tunable import Categorical, Float
+from ..parallel import sharding as shd
 from .config import ModelConfig
 from .layers import P
 
@@ -160,7 +175,9 @@ def _gather_dispatch(params: Dict[str, torch.Tensor], x2d: torch.Tensor, gates: 
     x_rep = x2d.unsqueeze(1).expand(t, k, d).reshape(t * k, d)
     buf = x2d.new_zeros((e, cap + 1, d))
     buf = buf.index_put((flat_ids, slot), x_rep)          # the trash slot is never read
+    buf = shd.constrain(buf, ("experts", "capacity", None))
     ye = _expert_ffn(params, buf[:, :cap])                # (E, C, d)
+    ye = shd.constrain(ye, ("experts", "capacity", None))
     w = torch.where(keep, gates.reshape(-1), torch.zeros_like(gates.reshape(-1))).to(x2d.dtype)
     yk = ye[flat_ids, torch.clamp(slot, max=cap - 1)]     # (T·k, d)
     contrib = (yk * w[:, None]).view(t, k, d)
@@ -194,6 +211,8 @@ def apply_moe(
     ``capacity_factor`` resolve through ``torch_moe_dispatch`` for the
     call's :func:`workload_signature` unless given."""
     strategy, cf = _resolve(x, cfg, strategy, capacity_factor, workload)
+    if shd.sharded_mesh() is not None:
+        return _moe_shard_map(params, x, cfg, cf, strategy)
     b, sl, d = x.shape
     t = b * sl
     e, k = cfg.moe_num_experts, cfg.moe_top_k
@@ -209,6 +228,48 @@ def apply_moe(
     # gather, local_tp and auto: one device's capacity dispatch
     y = _gather_dispatch(params, x2d, gates, ids, capacity(t, e, k, cf))
     return y.reshape(b, sl, d), aux
+
+
+def _local_moe(params: Dict[str, torch.Tensor], x2d: torch.Tensor, cfg: ModelConfig, cf: float,
+               strategy: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's tokens through its ff shard of every expert: (y, aux)."""
+    t, d = x2d.shape
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    gates, ids, probs = _route(params, x2d, cfg)
+    aux = router_aux_loss(probs, ids, e)
+    if strategy == "dense":
+        ye = _expert_ffn(params, x2d.expand(e, t, d))
+        w = torch.einsum("tk,tke->te", gates, _onehot(ids, e, torch.float32))
+        return torch.einsum("te,etd->td", w.to(x2d.dtype), ye), aux
+    return _gather_dispatch(params, x2d, gates, ids, capacity(t, e, k, cf)), aux
+
+
+def _moe_shard_map(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+                   cf: float, strategy: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer in a sharded program (module docstring)."""
+    sizes = shd.mesh_sizes(shd.sharded_mesh())
+    b, sl, _ = x.shape
+    batch, n = (), 1
+    for a in ("pod", "data"):          # the largest prefix of (pod, data) dividing the batch
+        if a in sizes and b % (n * sizes[a]) == 0:
+            batch, n = batch + (a,), n * sizes[a]
+    ff = shd.tp_axes(batch, cfg.moe_d_ff)
+    seq = "model" if "model" in sizes and "model" not in ff and sl % sizes["model"] == 0 \
+        else None
+    x_lay = shd.Layout((shd.entry(batch), seq, None))
+    f = shd.entry(ff)
+    w_in = {"router": shd.Layout((None, None)), "wi_gate": shd.Layout((None, None, f)),
+            "wi_up": shd.Layout((None, None, f)), "wo": shd.Layout((None, f, None))}
+
+    def body(p, xl):
+        bl, s_l, d = xl.shape
+        y, aux = _local_moe(p, xl.reshape(bl * s_l, d), cfg, cf, strategy)
+        return y.reshape(bl, s_l, d), aux
+
+    every = tuple(sizes)
+    y, aux = shd.local_call(body, (shd.Layout(x_lay.dims, ff), shd.Layout((), every, "avg")),
+                            (w_in, x_lay), {n: params[n] for n in w_in}, x)
+    return shd.constrain(y, ("batch", "seq", None)), shd.constrain(aux, ())
 
 
 def dropped_frac(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig, *,

@@ -51,6 +51,7 @@ from torch.utils import checkpoint as _ckpt
 from ..core.configstore import bucket_pow2
 from ..core.registry import MetricSpec, tunable_component
 from ..core.tunable import Categorical, Int
+from ..parallel.sharding import carry_rules, constrain, is_dtensor
 from .attention import apply_attn, apply_attn_decode, attn_params, cross_attn_params
 from .config import ModelConfig
 from .layers import P, apply_mlp, apply_norm, mlp_params, norm_params
@@ -131,9 +132,22 @@ def _pad_kv(k: torch.Tensor, cfg: ModelConfig, cap: int) -> torch.Tensor:
     sl = k.shape[1]
     if sl >= cap:
         # ring-buffer layout for windowed caches: token t lives at slot t % cap
-        return k[:, -cap:] if not cfg.window else torch.roll(k[:, -cap:], sl % cap, dims=1)
-    pad = torch.zeros((k.shape[0], cap - sl, *k.shape[2:]), dtype=k.dtype, device=k.device)
-    return torch.cat([k, pad], dim=1)  # slots [0, sl) filled; pos continues at sl
+        k, n = k[:, -cap:], sl % cap
+        if cfg.window and not is_dtensor(k):
+            k = torch.roll(k, n, dims=1)
+        elif cfg.window and n:      # a sharded program: DTensor has no roll
+            k = torch.cat([k[:, -n:], k[:, :-n]], dim=1)
+    else:
+        pad = torch.zeros((k.shape[0], cap - sl, *k.shape[2:]), dtype=k.dtype,
+                          device=k.device)
+        k = torch.cat([k, pad], dim=1)  # slots [0, sl) filled; pos continues at sl
+    # the cache's layout (sequence-sharded over `model` in a sharded program)
+    return constrain(k, ("batch", "cache_seq", "kv_heads", "head_dim"))
+
+
+def _res(x: torch.Tensor) -> torch.Tensor:
+    """Residual-stream layout pin (batch, seq, d_model)."""
+    return constrain(x, ("batch", "seq", "d_model"))
 
 
 def _cross(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, src: torch.Tensor,
@@ -142,8 +156,9 @@ def _cross(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, src: torch.Ten
     goes to ``state["xk"]``, ``state["xv"]`` (the static cross cache)."""
     h, (xk, xv) = apply_attn(lp["xattn"], apply_norm(lp["lnx"], x, cfg), cfg, xkv=src)
     if keep_state:
-        state["xk"], state["xv"] = xk, xv
-    return x + h
+        cache = ("batch", "cache_seq", "kv_heads", "head_dim")
+        state["xk"], state["xv"] = constrain(xk, cache), constrain(xv, cache)
+    return _res(x + h)
 
 
 def _block(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -159,7 +174,7 @@ def _block(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
         y, ssm_state = apply_ssm(lp["ssm"], xn, cfg, return_state=keep_state)
         if keep_state:
             state["ssm"] = ssm_state
-        return x + y, state, None
+        return _res(x + y), state, None
     h, kv = apply_attn(lp["attn"], xn, cfg, causal=kind != "encoder")
     if keep_state:
         state["k"], state["v"] = kv
@@ -168,13 +183,13 @@ def _block(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
         if keep_state:
             state["ssm"] = ssm_state
         h = (h + s) / 2.0
-    x = x + h
+    x = _res(x + h)
     if kind == "decoder":
         x = _cross(lp, x, cfg, src, state, keep_state)
     if kind == "moe":
         y, aux = apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg), cfg)
-        return x + y, state, aux
-    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg), state, None
+        return _res(x + y), state, aux
+    return _res(x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)), state, None
 
 
 def _group(gp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, src: torch.Tensor,
@@ -236,7 +251,7 @@ def forward_stack(layers: List[Any], x: torch.Tensor, cfg: ModelConfig, *,
     if torch.is_grad_enabled():
         s = stack_settings.settings_for(stack_workload(kind, x.shape[0], x.shape[1],
                                                        cfg.n_layers))
-        layer = remat_wrap(_layer, s["remat"])
+        layer = remat_wrap(carry_rules(_layer), s["remat"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
         x, a = layer(lp, x, cfg, kind, src)
@@ -278,18 +293,18 @@ def _decode_block(lp: Dict[str, Any], x: torch.Tensor, cache: Dict[str, Any],
     xn = apply_norm(lp["ln1"], x, cfg)
     if kind == "ssm":
         y, _ = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
-        return x + y
+        return _res(x + y)
     h, _ = apply_attn_decode(lp["attn"], xn, cache, pos, cfg)
     if kind == "hybrid":
         s, _ = apply_ssm_decode(lp["ssm"], xn, cache["ssm"], cfg)
         h = (h + s) / 2.0
-    x = x + h
+    x = _res(x + h)
     if kind == "decoder":
-        x = x + _cross_decode(lp, x, cache, pos, cfg)
+        x = _res(x + _cross_decode(lp, x, cache, pos, cfg))
     if kind == "moe":
         y, _ = apply_moe(lp["moe"], apply_norm(lp["ln2"], x, cfg), cfg)
-        return x + y
-    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg)
+        return _res(x + y)
+    return _res(x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg), cfg))
 
 
 def _cross_decode(lp: Dict[str, Any], x: torch.Tensor, cache: Dict[str, Any],
@@ -309,7 +324,7 @@ def decode_stack(layers: List[Any], x: torch.Tensor, caches: List[Dict[str, Any]
     kind = kind or cfg.family
     for lp, cache in zip(layers, caches):
         if kind == "vlm":
-            x = x + _cross_decode(lp["xb"], x, cache, pos, cfg)
+            x = _res(x + _cross_decode(lp["xb"], x, cache, pos, cfg))
             for inner_lp, inner_cache in zip(lp["blocks"], cache["inner"]):
                 x = _decode_block(inner_lp, x, inner_cache, pos, cfg, "dense")
         else:

@@ -31,6 +31,7 @@ from ..models.config import ModelConfig
 from ..models.layers import P, dtype_of
 from ..optim.adamw import adamw_init, adamw_update
 from ..optim.schedules import warmup_cosine
+from ..parallel import sharding as shd
 from ..tree import leaves, tree_map
 
 __all__ = ["cast_for_compute", "train_state_specs", "TrainHyper", "make_train_step",
@@ -45,9 +46,12 @@ def _spec_tree(cfg: ModelConfig) -> Dict[str, Any]:
 def cast_for_compute(params: Any, cfg: ModelConfig) -> Any:
     """Every leaf in the compute dtype, a leaf pinned by its spec (the SSM's
     float32 ``A_log``, ``dt_bias``) in its pin.  A leaf already in its
-    dtype is returned as it is, so gradients reach it."""
+    dtype is returned as it is, so gradients reach it.  Each cast keeps its
+    master's layout (in a sharded program the FSDP gathers then move the
+    compute dtype)."""
     dt = dtype_of(cfg)
-    return tree_map(lambda p, x: x.to(p.with_dtype(dt)), _spec_tree(cfg), params)
+    return tree_map(lambda p, x: shd.constrain(x.to(p.with_dtype(dt)), p.logical),
+                    _spec_tree(cfg), params)
 
 
 def train_state_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -91,6 +95,13 @@ def _value_and_grad(cfg: ModelConfig, params: Any, batch: Dict[str, torch.Tensor
                                                                              params)
 
 
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """A float32 accumulator of ``p``'s shape (of a DTensor, its layout)."""
+    if shd.is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def make_train_step(cfg: ModelConfig, hyper: Optional[TrainHyper] = None, *,
                     microbatches: int = 1) -> Callable:
     """Returns ``train_step(state, batch, lr_scale=1.0) -> (state, metrics)``.
@@ -115,12 +126,10 @@ def make_train_step(cfg: ModelConfig, hyper: Optional[TrainHyper] = None, *,
             b = batch["tokens"].shape[0]
             if b % microbatches:
                 raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
-            m = b // microbatches
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(_zeros_f32, params)
             lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for i in range(microbatches):
-                mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+                mb = {k: shd.row_block(v, i, microbatches) for k, v in batch.items()}
                 l, _, g = _value_and_grad(cfg, params, mb)
                 for acc, gi in zip(leaves(grads), leaves(g)):
                     acc.add_(gi)
@@ -173,7 +182,9 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     def decode_step(params: Dict[str, Any], state: Dict[str, Any]):
         logits, caches = M.decode_step(params, cfg, state["token"], state["caches"],
                                        state["pos"])
-        token = torch.argmax(logits, dim=-1).to(state["token"].dtype)
+        # a sharded program's vocab-parallel logits are gathered for the argmax
+        whole = shd.constrain(logits, ("batch", None))
+        token = torch.argmax(whole, dim=-1).to(state["token"].dtype)
         return {"token": token, "caches": caches, "pos": state["pos"] + 1, "logits": logits}
 
     return decode_step

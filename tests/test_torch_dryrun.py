@@ -42,7 +42,7 @@ from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.core import configstore
 from repro_torch.core.telemetry import op_counters
 from repro_torch.launch import adjust, dryrun, perf, roofline, shapes, specs
-from repro_torch.launch.mesh import HW, MESHES
+from repro_torch.launch.mesh import HW, MESHES, traced_group
 from repro_torch.models.layers import spec_leaves
 from torch_threads import one_thread
 
@@ -97,8 +97,19 @@ def test_build_cell_allocates_no_byte(arch, shape):
     storages = {t.untyped_storage()._cdata: t.untyped_storage().nbytes() for t in ts}
     assert sum(storages.values()) == spec_bytes
     assert plan.meta["model_flops"] == specs.model_flops(cfg, shapes.SHAPES[shape])
-    with pytest.raises(ValueError, match="sharded"):
+    # a sharded cell is built inside the fake group: meta DTensors whose local
+    # shards are one device's state, and nothing allocated either
+    with pytest.raises(ValueError, match="traced_group"):
         specs.build_cell(arch, shape, "single")
+    with traced_group(MESHES["single"]) as dm:
+        plan = specs.build_cell(arch, shape, "single", device_mesh=dm)
+        local = [t.to_local() for t in _tensors(plan.args)]
+        assert local and all(t.device.type == "meta" for t in local)
+        storages = {t.untyped_storage()._cdata: t.untyped_storage().nbytes() for t in local}
+        assert sum(storages.values()) == sum(
+            dryrun.state_bytes(cfg, shapes.SHAPES[shape], MESHES["single"]).values())
+        assert plan.meta["chips"] == 256 and plan.meta["model_flops"] == \
+            specs.model_flops(cfg, shapes.SHAPES[shape])
 
 
 def _tensors(tree):
@@ -273,28 +284,48 @@ def test_the_record_keys_are_the_references_less_the_xla_ones():
 
 
 def test_production_meshes_give_each_devices_state():
-    rec = dryrun.run_cell("olmo-1b", "train_4k", "single")
+    """A cell on ``single`` is rank 0's traced program, with the record's full
+    key set (reduced here: no full-size cell is traced on this host); its
+    state is the FSDP arithmetic of the full config."""
     cfg = get_config("olmo-1b")
-    assert rec["status"] == "state_only" and rec["chips"] == 256
-    assert set(rec["memory"]) == {"params", "opt", "batch"}
-    assert rec["per_device_bytes"] == sum(rec["memory"].values())
-    # FSDP + TP over 256 devices: about 1/256 of (bf16 params + f32 m, v)
-    assert rec["memory"]["params"] + rec["memory"]["opt"] == pytest.approx(
-        10 * cfg.param_count() / 256, rel=0.05)
-    dec = dryrun.run_cell("mamba2-780m", "long_500k", "multi")
-    assert dec["status"] == "state_only" and set(dec["memory"]) == {"params", "caches", "batch"}
+    rec = dryrun.run_cell("olmo-1b", "train_4k", "single", cfg=cfg.reduced(),
+                          shape=small("train", 64, 32))
+    ref = _rec_keys(ROOT / "src" / "repro" / "launch" / "dryrun.py")
+    assert rec["status"] == "ok" and rec["chips"] == 256, rec.get("traceback")
+    assert set(rec) == {RENAMED.get(k, k) for k in ref - XLA_ONLY} - {
+        "reason", "error", "traceback", "stored_cell_settings", "tunable_overrides"}
+    assert set(rec["memory"]["state"]) == {"params", "opt", "batch"}
+    assert rec["per_device_bytes"] >= rec["memory"]["argument_size_in_bytes"] >= \
+        sum(rec["memory"]["state"].values())
+    coll = rec["counters"]["collectives"]
+    assert coll["all_gather"]["axes"]["data"] > 0 and coll["reduce_scatter"]["axes"]["data"] > 0
+    assert rec["roofline"]["collective_s"] == rec["counters"]["collective_bytes"] / \
+        HW["internode_bw"] > 0
+    mf = rec["meta"]["model_flops"] / 256
+    assert rec["useful_flops_ratio"] == mf / rec["counters"]["flops"]
+    # FSDP + TP over 256 devices: about 1/256 of (bf16 params + f32 m, v);
+    # the pod axis halves each device's optimizer state again on multi
+    full = dryrun.state_bytes(cfg, shapes.SHAPES["train_4k"], MESHES["single"])
+    assert full["params"] + full["opt"] == pytest.approx(10 * cfg.param_count() / 256, rel=0.05)
+    multi = dryrun.state_bytes(cfg, shapes.SHAPES["train_4k"], MESHES["multi"])
+    assert multi["opt"] == pytest.approx(full["opt"] / 2, rel=0.05)
+    dec = dryrun.state_bytes(get_config("mamba2-780m"), shapes.SHAPES["long_500k"],
+                             MESHES["multi"])
+    assert set(dec) == {"params", "caches", "batch"}
 
 
 def test_the_cli_writes_a_record(tmp_path):
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b",
-                          "--shape", "decode_32k", "--mesh", "multi", "--out", str(tmp_path),
-                          "--store", str(tmp_path / "store")],
+                          "--shape", "decode_32k", "--mesh", "multi", "--reduced",
+                          "--out", str(tmp_path), "--store", str(tmp_path / "store")],
                          capture_output=True, text=True, timeout=300, cwd=ROOT,
                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr[-2000:]
     rec = json.loads((tmp_path / "olmo-1b__decode_32k__multi.json").read_text())
-    assert rec["status"] == "state_only" and rec["tunable_overrides"] == []
-    assert "state_only" in out.stdout
+    assert rec["status"] == "ok" and rec["tunable_overrides"] == [] and rec["chips"] == 512
+    assert set(rec["memory"]["state"]) == {"params", "caches", "batch"}
+    assert rec["counters"]["collectives"]["all_reduce"]["count"] > 0
+    assert "ok mem=" in out.stdout
 
 
 # -------------------------------------------------------- roofline formulas
@@ -351,8 +382,12 @@ def test_render_table_and_pick_hillclimb_cells_equal_the_references():
                zip([c for c in port_cells if c["status"] == "ok"], ok_rows))
     assert roofline.pick_hillclimb_cells(port_cells, "one") == \
         jroofline.pick_hillclimb_cells(ref_cells)
-    state = dict(port_cells[0], mesh="single", status="state_only")
-    assert "state only" in roofline.render_table([state], "single")
+    sharded = dict(port_cells[0], mesh="single", counters={"collective_bytes": 2.5e9})
+    table = roofline.render_table([sharded, dict(cells[5], mesh="single")], "single")
+    head, _, row, error = table.splitlines()
+    assert head.endswith("| coll bytes |") and row.endswith("| 2.50 GB |")
+    assert row.startswith(f"| {sharded['arch']} | {sharded['shape']} | ok |") and "–" not in row
+    assert all(len(r.split("|")) == len(head.split("|")) for r in (row, error))
 
 
 def test_load_cells_skips_experiment_files(tmp_path):
