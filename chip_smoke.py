@@ -439,6 +439,17 @@ SERVE_WIDTHS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 DENSE_WINDOW_NAME = "starcoder2-15b"
 DENSE_WINDOW_WIDTHS = [*SERVE_WIDTHS, 8192]
 DENSE_WINDOW_CAPACITY = 16384
+# serve-dense-large: Command-R-35B at full size and DeepSeek-67B at full
+# width, its depth cut to 20 of 95 layers, one model's weights at a time;
+# capacity 8192, so a prompt of 2049-4096 tokens prefills at 4096 (the
+# server keeps capacity // 2 prompt tokens).  Command-R's 60.57 GB of
+# params and its 10.74 GB cache leave ~13 GB of the H100's 85.0 GB.
+DENSE_LARGE_WIDTHS = {"command-r-35b": [*SERVE_WIDTHS, 4096],
+                      "deepseek-67b": [2, 64, 1024, 4096]}
+DENSE_LARGE_LAYERS = {"command-r-35b": None, "deepseek-67b": 20}
+DENSE_LARGE_CAPACITY = 8192
+DRAW_SLACK = 0.01            # a draw's peak over its params and one float32 layer slice
+PLAIN_ROWS = 2048            # query rows a call of the plain attention past this width
 # dryrun-check: the reference's cells that fit one card, a decode step at
 # the last position of a 524288-token context
 DRYRUN_CHECK_ARCHS = ("starcoder2-15b", "mamba2-780m", "hymba-1.5b")
@@ -464,6 +475,10 @@ ATTN_CASES = [
     *((1, w, w, 48, 8, 128, 4096, 0, True) for w in MOE_WINDOW_WIDTHS),
     # StarCoder2-15B prefills (serve-dense-window): GQA 48->4, head dim 128, window 4096
     *((1, w, w, 48, 4, 128, 4096, 0, True) for w in DENSE_WINDOW_WIDTHS),
+    # Command-R-35B and DeepSeek-67B prefills (serve-dense-large): GQA 64->8, head dim
+    # 128, causal, no window
+    *((1, w, w, 64, 8, 128, 0, 0, True)
+      for w in sorted({w for ws in DENSE_LARGE_WIDTHS.values() for w in ws})),
     # reduced Mixtral-8x22B prefills (model-moe): GQA 4->2, head_dim 16, window 16
     *((1, w, w, 4, 2, 16, 16, 0, True) for w in (2, 4, 8, 16, 32)),
     # seamless-m4t-medium (serve-encdec): the encoder's non-causal 512 x 512 over the
@@ -701,7 +716,7 @@ def _qkv(case, dtype, device, seed):
 
 
 def _plain_attention(ref, q, k, v, window: int, q_offset: int, causal: bool = True,
-                     rows: int = 2048):
+                     rows: int = PLAIN_ROWS):
     """``naive_attention``, a block of ``rows`` query rows at a time (a row's
     output depends on its own scores only): at once, the float32 scores of
     an 8192-token prefill at 48 heads would take 13 GB."""
@@ -1027,23 +1042,26 @@ def serve_main_path(device, cfg, *, capacity: int, max_batch: int, n_requests: i
 def phase_serve(device, card: str, name: str = "olmo-1b", n_requests: int = 16,
                 widths: Optional[list] = None, label: str = "serve", capacity: int = 2048,
                 max_width: int = 1024, n_layers: Optional[int] = None,
-                divergences: bool = True) -> dict:
+                divergences: bool = True, params=None, cfg=None) -> dict:
     """Serve the full-width model ``name`` (its depth cut to ``n_layers``
-    where given) on the card; see :func:`serve_main_path`.  Without
+    where given; ``cfg`` where given) on the card, on ``params`` where given
+    (else drawn from seed 0); see :func:`serve_main_path`.  Without
     ``divergences`` the one-at-a-time replay is left out."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(name)
+    full = get_config(name)
+    if cfg is None:
+        cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers).validate()
     depth = f"{cfg.n_layers} layers"
     if cfg.family == "encdec":
         depth = f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder layers"
     elif cfg.family == "vlm":
         depth = f"{cfg.n_layers} layers + {cfg.n_layers // cfg.cross_attn_period} cross blocks"
-    if n_layers is not None:
-        depth = f"depth cut to {n_layers} of {cfg.n_layers} layers"
-        cfg = dataclasses.replace(cfg, n_layers=n_layers).validate()
+    if cfg.n_layers != full.n_layers:
+        depth = f"depth cut to {cfg.n_layers} of {full.n_layers} layers"
     out = serve_main_path(device, cfg, capacity=capacity, max_batch=8, n_requests=n_requests,
-                          max_width=max_width, widths=widths, divergences=divergences)
+                          max_width=max_width, widths=widths, divergences=divergences,
+                          params=params)
     out.update(widths_asked=widths, capacity=capacity, max_width=max_width)
     m = out["metrics"]
     launched = ", ".join(f"{n} {k} launches" for k, n in out["launches"].items() if n)
@@ -1099,7 +1117,8 @@ def _release() -> None:
 
 def _memory(label: str, t_start: float) -> None:
     print(f"{label}: torch.cuda.max_memory_reserved {torch.cuda.max_memory_reserved() / 2**30:.2f} "
-          f"GiB, memory_reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB; "
+          f"GiB, memory_reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - t_start:.1f} s since the start")
 
 
@@ -1222,7 +1241,8 @@ def decode_step_timing(srv, steps: int = GRAPH_DECODE_STEPS) -> dict:
     return out
 
 
-def phase_graphs(device, card: str, serves: dict, label: str = "graphs") -> dict:
+def phase_graphs(device, card: str, serves: dict, label: str = "graphs",
+                 one_cache: bool = False) -> dict:
     """Each full-width model (the serve phases' weights, smoke mix and
     capacity, bf16, max_batch 8) served with ``step="eager"`` and with
     ``step="graph"``: the same step bodies on the same static buffers,
@@ -1230,18 +1250,24 @@ def phase_graphs(device, card: str, serves: dict, label: str = "graphs") -> dict
     identical between the two and the launch counts are exact on both.
     Prints, per path, tokens/s and p50/p99 of the run (a graph server
     captures during it), the decode step's device and host time, the
-    registry's counters, and the graphed step's costliest kernels."""
+    registry's counters, and the graphed step's costliest kernels.  With
+    ``one_cache`` the graph path runs first, on the programs and buffers
+    its serve phase handed over, and they are freed before the eager path
+    builds its own: one cache at a time, for a model whose cache fills what
+    its weights leave of the card."""
     out = {}
     for name, serve in serves.items():
         cfg = serve["cfg"]
         runs = {}
-        for step in ("eager", "graph"):
+        for step in ("graph", "eager") if one_cache else ("eager", "graph"):
             r = serve_main_path(device, cfg, capacity=serve["capacity"], max_batch=8,
                                 n_requests=len(serve["arrivals"]),
                                 max_width=serve["max_width"], widths=serve["widths_asked"],
                                 step=step, params=serve["params"], divergences=False)
             r["decode"] = decode_step_timing(r.pop("server"))
             runs[step] = r
+            if one_cache:
+                _release()
             m, d = r["metrics"], r["decode"]
             print(f"{label}: {name} step={step}: tokens_per_s {m['tokens_per_s']:.2f}, "
                   f"p50_latency_s {m['p50_latency_s']:.4f}, p99_latency_s "
@@ -1273,6 +1299,92 @@ def phase_graphs(device, card: str, serves: dict, label: str = "graphs") -> dict
     out["launches"] = {k: sum(r[step]["launches"][k] for r in out.values() for step in r)
                        for k in _kernels()}
     return out
+
+
+# -------------------------------------------------------------- dense-large
+def dense_large_cfg(name: str):
+    """``name``'s config at full width, its depth cut to
+    ``DENSE_LARGE_LAYERS[name]`` where that is set."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if DENSE_LARGE_LAYERS.get(name):
+        cfg = dataclasses.replace(cfg, n_layers=DENSE_LARGE_LAYERS[name]).validate()
+    return cfg
+
+
+def reckoning(cfg, capacity: int, max_batch: int = 8) -> dict:
+    """Bytes a served model holds, from its specs alone: the params (every
+    leaf at its dtype), the KV cache (layers x K and V x kv heads x head dim
+    x element x max_batch x capacity) and the largest float32 layer slice
+    that ``init_params`` draws at a time."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import layer_axes, spec_leaves, torch_dtype
+
+    dtype = torch_dtype(cfg.dtype)
+    leaves = spec_leaves(M.param_specs(cfg))
+    params = sum(math.prod(p.shape) * p.with_dtype(dtype).itemsize for p in leaves)
+    cache = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * dtype.itemsize * max_batch * capacity
+    slice_ = max(4 * math.prod(p.shape[layer_axes(p):]) for p in leaves
+                 if layer_axes(p) and p.init in ("normal", "embed"))
+    return {"params": params, "cache": cache, "slice": slice_, "elem": dtype.itemsize,
+            "draw_limit": (params + slice_) * (1 + DRAW_SLACK)}
+
+
+def draw_params(device, cfg, seed: int = 0) -> tuple:
+    """``init_params`` from ``seed`` with the allocator's peak reset just
+    before: (params, the draw's peak allocated bytes over what was
+    allocated before it, the bytes the params hold, seconds)."""
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaves
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held = sum(x.numel() * x.element_size() for x in leaves(params))
+    peak = torch.cuda.max_memory_allocated() - base if cuda else held
+    return params, peak, held, wall
+
+
+def phase_serve_dense_large(device, card: str, name: str, *, cfg=None,
+                            widths: Optional[list] = None,
+                            capacity: int = DENSE_LARGE_CAPACITY,
+                            label: str = "serve-dense-large") -> dict:
+    """One of the two largest dense configs on the card (``cfg``,
+    ``widths``: a reduced rehearsal's): its reckoning printed before the
+    draw, the draw's measured peak after it (fails beyond the params plus
+    one float32 layer slice plus ``DRAW_SLACK``), then served on CUDA
+    graphs (see :func:`phase_serve`)."""
+    cfg = cfg or dense_large_cfg(name)
+    widths = widths or DENSE_LARGE_WIDTHS[name]
+    r = reckoning(cfg, capacity)
+    t0 = time.perf_counter()
+    print(f"{label}: {name} reckoning: params {r['params'] / 1e9:.2f} GB "
+          f"({cfg.param_count() / 1e9:.3f} B at {cfg.dtype}), cache {cfg.n_layers} x 2 x "
+          f"{cfg.n_kv_heads} x {cfg.hd} x {r['elem']} B x 8 x {capacity} = "
+          f"{r['cache'] / 1e9:.2f} GB, largest float32 layer slice {r['slice'] / 1e9:.3f} GB; "
+          f"the draw's peak may reach {r['draw_limit'] / 1e9:.2f} GB")
+    params, peak, held, wall = draw_params(device, cfg)
+    print(f"{label}: {name} drawn in {wall:.1f} s: peak allocated {peak / 1e9:.2f} GB, params "
+          f"{held / 1e9:.2f} GB (reckoned {r['params'] / 1e9:.2f} + slice "
+          f"{r['slice'] / 1e9:.3f} GB, limit {r['draw_limit'] / 1e9:.2f} GB) ({card})")
+    if held != r["params"] or peak > r["draw_limit"]:
+        raise AssertionError(f"{name}: the draw held {held} B of params (reckoned "
+                             f"{r['params']}) and peaked at {peak} B, over {r['draw_limit']:.0f}")
+    serve = phase_serve(device, card, name, n_requests=len(widths), widths=widths,
+                        capacity=capacity, max_width=max(widths), label=label,
+                        divergences=False, params=params, cfg=cfg)
+    del params
+    print(f"{label}: {name}: phase wall {time.perf_counter() - t0:.1f} s")
+    return serve
 
 
 # -------------------------------------------------------------------- model
@@ -1462,12 +1574,15 @@ def attention_bound_ms(b: int, s: int, h: int, kh: int, d: int, elem_bytes: int,
 
 
 # name: (batch, seq, heads, kv_heads, head_dim, window), bf16, causal; every
-# window is wider than its sequence, so SDPA's causal mask is the same function
+# window is wider than its sequence, so SDPA's causal mask is the same function.
+# OLMo-1B's widest prefill is bytes-bound, Command-R-35B's (the widest that
+# serve-dense-large gives) bound by operations
 ATTN_TIMED = {
     "olmo-1b prefill": (1, 1024, 16, 16, 128, 0),
     "hymba-1.5b prefill": (1, 1024, 25, 5, 64, 2048),
     **{f"grid b{b}q{s}": (b, s, 16, 16, 128, 0) for b, s in ((1, 128), (2, 256), (2, 512),
                                                               (4, 1024))},
+    "command-r-35b prefill": (1, 4096, 64, 8, 128, 0),
 }
 
 
@@ -1498,14 +1613,17 @@ def phase_timing(device) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms, ms_dev = _both_ms(lambda *t: kernel.flash_attention(*t, causal=True, window=window),
                               q, k, v)
-        if banded:
-            mask = _window_mask(s, window, device)
+        chunked = s > PLAIN_ROWS
+        if chunked:
             plain, plain_dev = _both_ms(lambda *t: _plain_attention(ref, *t, window, 0), q, k, v)
-            lib, lib_dev = _both_ms(lambda *t: sdpa(*t, attn_mask=mask, enable_gqa=h != kh),
-                                    qt, kt, vt)
         else:
             plain, plain_dev = _both_ms(
                 lambda *t: ref.naive_attention(*t, causal=True, window=window), q, k, v)
+        if banded:
+            mask = _window_mask(s, window, device)
+            lib, lib_dev = _both_ms(lambda *t: sdpa(*t, attn_mask=mask, enable_gqa=h != kh),
+                                    qt, kt, vt)
+        else:
             lib, lib_dev = _both_ms(lambda *t: sdpa(*t, is_causal=True, enable_gqa=h != kh),
                                     qt, kt, vt)
         bound_ms, bound_by = attention_bound_ms(b, s, h, kh, d, 2, PEAK_BF16_FLOPS,
@@ -1517,7 +1635,7 @@ def phase_timing(device) -> dict:
                       "library_ms_device": lib_dev, "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"timing: flash_attention {rows[name]['shape']} ({name}), events / device-held: "
               f"kernel {ms:.4f} / {ms_dev:.4f} ms, plain {plain:.4f} / {plain_dev:.4f} ms"
-              f"{' (2048 query rows a call)' if banded else ''}, SDPA"
+              f"{f' ({PLAIN_ROWS} query rows a call)' if chunked else ''}, SDPA"
               f"{' with the window mask' if banded else ''} {lib:.4f} / {lib_dev:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})")
     kernel.flash_attention.launches = n0     # timing launches are not the main path's
@@ -3044,12 +3162,13 @@ def _remat_factor(cfg, batch: int, seq: int) -> int:
     return 1 + (remat != "none")
 
 
-def train_main_path(device, cfg, *, batch: int, seq: int, steps: int, resume_to: int,
-                    ckpt_every: int, ckpt_dir, ckpt_overrides=None,
+def train_main_path(device, cfg, *, batch: int, seq: int, steps: int,
+                    resume_to: Optional[int], ckpt_every: int, ckpt_dir, ckpt_overrides=None,
                     continued: bool = False) -> dict:
     """``run_training`` for ``steps`` steps with a checkpoint every
-    ``ckpt_every`` into ``ckpt_dir``, then again to ``resume_to`` steps,
-    which must resume where the first run stopped.  The kernels' launch
+    ``ckpt_every`` into ``ckpt_dir``, then (unless ``resume_to`` is None)
+    again to ``resume_to`` steps, which must resume where the first run
+    stopped.  The kernels' launch
     counts are zeroed before each run and read after it; each run must
     launch every kernel of the family layers × (1 + recompute) times a
     step (none on the CPU), and every loss must be finite.  With
@@ -3065,7 +3184,7 @@ def train_main_path(device, cfg, *, batch: int, seq: int, steps: int, resume_to:
     kernels = _kernels()
     per_step = _expected_launches(cfg, _remat_factor(cfg, batch, seq))
     runs, first_state = [], None
-    for n_steps in (steps, resume_to):
+    for n_steps in (steps,) if resume_to is None else (steps, resume_to):
         timer = _StepTimer(device)
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -3107,10 +3226,11 @@ def train_main_path(device, cfg, *, batch: int, seq: int, steps: int, resume_to:
             first_state, m = step_fn(first_state, b, scale)
             rows.append({"step": step, **{k: float(v) for k, v in m.items()}})
         del first_state
-    first, second = ([r["step"] for r in run["rows"]] for run in runs)
-    if first != list(range(steps)) or second != list(range(steps, resume_to)):
-        raise AssertionError(f"steps {first} then {second}: the second run must resume at "
-                             f"step {steps}")
+    done = [[r["step"] for r in run["rows"]] for run in runs]
+    want = [list(range(steps))] + ([] if resume_to is None else [list(range(steps, resume_to))])
+    if done != want:
+        raise AssertionError(f"steps {done}: the first run must take steps 0-{steps - 1}, the "
+                             f"second resume at step {steps}")
     return {"runs": runs, "launches": {k: sum(r["launches"][k] for r in runs)
                                        for k in kernels}, "continued": rows}
 
@@ -3138,14 +3258,13 @@ def _train_report(label: str, cfg, batch: int, seq: int, out: dict, card: str) -
 
 
 def phase_train(device, card: str, name: str = "olmo-1b", batch: int = 8, seq: int = 2048,
-                steps: int = 6, resume_to: int = 8, ckpt_every: int = 3,
-                label: str = "train", continued: bool = False) -> dict:
+                steps: int = 6, resume_to: Optional[int] = None, ckpt_every: int = 3,
+                label: str = "train") -> dict:
     """Full-width training through ``run_training`` (random bf16 weights from
     seed 0, the port's synthetic corpus): ``steps`` steps with a checkpoint
-    every ``ckpt_every`` into a temporary directory, then a second run to
-    ``resume_to`` steps that must resume at ``steps``.  With ``continued``
-    the resumed steps' gradient norms and losses are printed in full beside
-    those of the first run continued in memory (printed, not gated)."""
+    every ``ckpt_every`` into a temporary directory, then (where
+    ``resume_to`` is given) a second run to ``resume_to`` steps that must
+    resume at ``steps``."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -3154,21 +3273,14 @@ def phase_train(device, card: str, name: str = "olmo-1b", batch: int = 8, seq: i
     t0 = time.perf_counter()
     print(f"{label}: {name} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}), batch {batch} x seq {seq}, "
-          f"{steps} steps then resume to {resume_to}, checkpoint every {ckpt_every} on {card}")
+          f"{steps} steps" + ("" if resume_to is None else f" then resume to {resume_to}")
+          + f", checkpoint every {ckpt_every} on {card}")
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{label}_") as td:
         out = train_main_path(device, cfg, batch=batch, seq=seq, steps=steps,
-                              resume_to=resume_to, ckpt_every=ckpt_every, ckpt_dir=td,
-                              continued=continued)
+                              resume_to=resume_to, ckpt_every=ckpt_every, ckpt_dir=td)
     _train_report(label, cfg, batch, seq, out, card)
-    resumed = {r["step"]: r for r in out["runs"][1]["rows"]}
-    for r in out["continued"]:
-        back = resumed[r["step"]]
-        same = (back["grad_norm"], back["loss"]) == (r["grad_norm"], r["loss"])
-        print(f"{label}: step {r['step']}: grad_norm resumed {back['grad_norm']!r}, continued "
-              f"in memory {r['grad_norm']!r}; loss {back['loss']!r} / {r['loss']!r}: "
-              f"{'the same bits' if same else 'DIFFERENT'}")
-    print(f"{label}: the second run resumed at step {steps}; launches "
-          f"{out['launches']} = steps x {cfg.n_layers} layers x "
+    print(f"{label}: " + ("" if resume_to is None else f"the second run resumed at step {steps}; ")
+          + f"launches {out['launches']} = steps x {cfg.n_layers} layers x "
           f"{_remat_factor(cfg, batch, seq)} (remat)")
     print(f"{label}: phase wall {time.perf_counter() - t0:.1f} s")
     return out
@@ -4196,7 +4308,7 @@ def main() -> int:
                                   label="serve-hybrid"),
     }
     _memory("serve phases", t_start)
-    for name in serves:
+    for name in (*serves, *DENSE_LARGE_WIDTHS):
         phase_model(device, name)
     _memory("model", t_start)
     graphs = phase_graphs(device, card, serves)
@@ -4284,13 +4396,29 @@ def main() -> int:
     del serve, graphs
     _release()
     _memory("serve-dense-window, graphs-dense-window", t_start)
+    # Command-R-35B at full size, then DeepSeek-67B at full width cut to 20
+    # layers: one model's weights at a time, and one cache at a time in the
+    # graphs phase (Command-R's params and cache leave ~13 GB of the card)
+    for label in ("serve-dense-large", "graphs-dense-large"):
+        path_launches[label] = dict.fromkeys(_kernels(), 0)
+    for name in DENSE_LARGE_WIDTHS:
+        serve = phase_serve_dense_large(device, card, name)
+        graphs = phase_graphs(device, card, {name: serve}, label="graphs-dense-large",
+                              one_cache=True)
+        for k in _kernels():
+            path_launches["serve-dense-large"][k] += serve["launches"][k]
+            path_launches["graphs-dense-large"][k] += graphs["launches"][k]
+        del serve, graphs
+        _release()
+        _memory(f"serve-dense-large, graphs-dense-large ({name})", t_start)
     phase_dryrun_check(device, card)
     _memory("dryrun-check", t_start)
     sharded = phase_dryrun_check_sharded(device, card)
     path_launches["dryrun-check-sharded"] = {
         name: sum(c["launches"][name] for c in sharded.values()) for name in _kernels()}
     _memory("dryrun-check-sharded", t_start)
-    path_launches["train"] = phase_train(device, card, continued=True)["launches"]
+    # one run: the resume is held by train-ssm, train-moe and the fault twin
+    path_launches["train"] = phase_train(device, card)["launches"]
     phase_train_profile(device, card)
     _memory("train", t_start)
     path_launches["training-grid"] = phase_training_grid(device, card)["launches"]
