@@ -154,7 +154,7 @@ Phases, in order; any failure exits non-zero before the result lines:
                      (6 a side, ``improved``, a registry miss); every child
                      launched the attention kernel.  Started in the
                      background once the serving phases are released, read
-                     after phase 30.
+                     after phase 32.
  13d. examples    — the five ``repro_torch.examples`` at their smoke sizes
                      on the card: quickstart (Figure 1, 30 steps), train_lm's
                      smoke preset on olmo-1b and mamba2-780m (launches =
@@ -166,16 +166,15 @@ Phases, in order; any failure exits non-zero before the result lines:
  14. train        — full-width OLMo-1B (1.28 B params, random bf16 weights
                      from seed 0) trained by ``repro_torch.runtime.train_loop.
                      run_training`` on the port's synthetic corpus, batch 8 x
-                     seq 2048: 6 steps with a checkpoint every 3 into a
-                     temporary directory, then a second run to 8 steps that
-                     must resume at step 6; the resumed steps' gradient
-                     norms and losses in full beside the first run's state
-                     stepped on to 8 in memory.  Per step: loss, gradient norm,
+                     seq 2048: 6 steps and one checkpoint, at the last step,
+                     into a temporary directory (one run: train-hybrid,
+                     train-moe's reduced run and the fault twin hold the
+                     resume).  Per step: loss, gradient norm,
                      ms by CUDA events, tokens/s and an MFU reading (model
                      FLOPs over the step time over the bf16 peak); per run
                      the peak memory allocated and the checkpoint's blocked
-                     seconds.  Fails on a non-finite loss, a resume that
-                     does not continue, or flash-attention launches other
+                     seconds.  Fails on a non-finite loss or on
+                     flash-attention launches other
                      than steps x 16 layers x 2 (the layer recomputed under
                      ``remat`` "full").  Then one warm step again under
                      torch.profiler: busy time, idle share, top kernels.
@@ -185,9 +184,32 @@ Phases, in order; any failure exits non-zero before the result lines:
                      4), gated as the serving grid; it must launch the
                      attention kernel.
  15. train-ssm    — the same for full-width mamba2-780m at batch 4 x seq
-                     1024, one step, a checkpoint, a resumed second step;
-                     SSD launches steps x 48 x 2.
- 16. train-grad   — at those shapes, bf16 and float32, outputs and input
+                     1024, one step and a checkpoint (15b carries the SSD
+                     through a resume); SSD launches steps x 48 x 2.
+ 15b. train-hybrid — hymba-1.5b at full size (32 layers, d 1600, 1.640 B
+                     params, bf16, seed 0) through ``run_training`` at batch
+                     2 x seq 4096, past its 2048 window: one step and a
+                     checkpoint, then a second run that must resume at step
+                     1, its loss and gradient norm the bits of the first
+                     run's state stepped on in memory (the first checkpoint
+                     of blocks that hold attention and SSM leaves, the
+                     float32 pins ``A_log`` and ``dt_bias`` among them);
+                     flash and SSD launches each steps x 32 x 2.  At the
+                     seed-0 init the gradient's float32 sum of squares
+                     overflows (a norm of ~1.3e20), as the reference's
+                     would: an +inf norm is taken, and every final state
+                     must be finite instead.
+ 15c. train-vlm   — llama-3.2-vision-11b at full width cut to one group of
+                     its ``cross_attn_period`` (5 dense blocks and 1 cross
+                     block, 2.183 B of 10.111 B params), batch 4 x seq 2048
+                     with the config's 1601 seeded modal tokens a row, 3
+                     steps twice: the same bits in both runs; flash
+                     launches steps x 6 x 2.
+ 16. train-grad   — at every kernel shape of the full-width train phases
+                     (``TRAIN_GRAD_SHAPES``: OLMo-1B's, mamba2-780m's,
+                     OLMoE's, seamless' three, hymba's windowed GQA and
+                     SSD, the VLM's causal GQA and its cross attention over
+                     1601 tokens), bf16 and float32, outputs and input
                      gradients (q, k, v; x, dt, B, C) through each kernel's
                      autograd Function against autograd through its plain
                      version alone, within the kernels phase's tolerances.
@@ -203,8 +225,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                      by the kernel's float32 error (the step is chaotic
                      there); bf16 against the float32 plain gradient,
                      within ``STEP_GRAD_TOL`` or 2x the bf16 plain path's
-                     error; the largest leaves, the norm at cut depths and
-                     over the first 8 batches.
+                     error; the largest leaves and the norm at cut
+                     depths.  Then hymba-1.5b cut to 2
+                     layers in float32 at train-hybrid's 2 x 4096, the
+                     attention and the SSD on the kernel path against both
+                     on the plain path, within ``STEP_GRAD_TOL``.
  17. fault        — ``python -m repro_torch.bench.runner --only
                      fault_tolerance`` on the card (reduced OLMo-1B in bf16,
                      its children fresh interpreters on the card; the full
@@ -212,7 +237,7 @@ Phases, in order; any failure exits non-zero before the result lines:
                      ``check_fault_tolerance`` on its JSON: kill → resume
                      bit-identical, no re-measured campaign work, the torn
                      checkpoint's fallback, async beats blocking.  Started
-                     in the background after 14b, read after 19.
+                     in the background after 33, read after 19.
  18. agent        — Figure 1: a spawned ``AgentProcess`` tunes
                      ``torch_train_loop.lr_scale`` (bo, budget 4, 2 steps a
                      config) of full-width OLMo-1B at batch 4 x seq 512 over
@@ -326,11 +351,15 @@ Phases, in order; any failure exits non-zero before the result lines:
                      busy ms, idle share, the costliest kernels.
  33. dryrun-check — the dry-run against the card, on the reference cells
                      that fit one H100: starcoder2-15b, mamba2-780m and
-                     hymba-1.5b at long_500k (batch 1, context 524288).
-                     Each cell's dry-run record on ``one`` (meta traces,
-                     ``repro_torch.launch.dryrun.run_cell``) is printed;
-                     then its params and caches at full size and one decode
-                     step at position 524287, eager (the peak allocated
+                     hymba-1.5b at long_500k (batch 1, context 524288) and
+                     at decode_32k (batch 128, context 32768; starcoder2's
+                     77.3 GB the closest to the card's 85.0 GB), one model
+                     at a time.  Each cell's reckoning (params and decode
+                     state from the specs) and its dry-run record on ``one``
+                     (meta traces, ``repro_torch.launch.dryrun.run_cell``)
+                     are printed; then its params and caches at full size
+                     and one decode step at the context's last position,
+                     eager (the peak allocated
                      over the cell's own allocations must be within 10% of
                      the record's ``per_device_bytes``), then captured in a
                      CUDA graph and replayed between events (no step may
@@ -379,9 +408,8 @@ phases' servers, weights and graph pools are released (one model's weights
 at a time), then 25 and 30; phases 14-19 after those, once theirs are
 released too.  Two twins whose children are fresh interpreters run in the
 background, each in a process group of its own that the script kills if it
-fails: 13c beside 20-33, 17 beside 15-19 (the train phase and its profile
-run alone); the dry-run sweep (34, host work) runs beside everything from
-3 on.  A
+fails: 13c beside 20-32, 17 beside 33b and 14-19; the dry-run sweep (34,
+host work) runs beside everything from 3 on.  A
 server hands its graphs and buffers over to the next server of its params
 and context (``repro_torch.core.compilecache``): every release point drops
 what is still handed over.  The script
@@ -450,10 +478,12 @@ DENSE_LARGE_LAYERS = {"command-r-35b": None, "deepseek-67b": 20}
 DENSE_LARGE_CAPACITY = 8192
 DRAW_SLACK = 0.01            # a draw's peak over its params and one float32 layer slice
 PLAIN_ROWS = 2048            # query rows a call of the plain attention past this width
-# dryrun-check: the reference's cells that fit one card, a decode step at
-# the last position of a 524288-token context
+# dryrun-check: the reference's decode cells that fit one card, a decode step
+# at the last position of the context: batch 1 at 524288 tokens (long_500k)
+# and batch 128 at 32768 (decode_32k)
 DRYRUN_CHECK_ARCHS = ("starcoder2-15b", "mamba2-780m", "hymba-1.5b")
-DRYRUN_CHECK_SHAPE = "long_500k"
+DRYRUN_CHECK_SHAPES = ("long_500k", "decode_32k")
+DRYRUN_CHECK_REPLAYS = {"long_500k": 20, "decode_32k": 5}   # a decode_32k step is ~0.3 s
 DRYRUN_MEMORY_RTOL = 0.10    # measured peak against the dry-run's per_device_bytes
 DRYRUN_TIME_FLOOR = 0.95     # no step faster than this share of its roofline bound
 DRYRUN_HILLCLIMB = ("olmo-1b", "train_4k", 3)    # arch, shape, patience
@@ -2418,12 +2448,14 @@ def phase_figures(device, card: str) -> dict:
 def dryrun_check_path(device, arch: str, *, cfg=None, shape=None, steps: int = 20) -> dict:
     """One dry-run cell against the card.  The dry-run's record on ``one``
     (``repro_torch.launch.dryrun.run_cell``: meta traces, nothing allocated),
-    then the cell's params (seed 0) and caches at full size and one decode
-    step at the context's last position (``runtime.steps.make_decode_step``):
+    then the cell's params (seed 0; the draw's peak allocated measured) and
+    caches at full size and one decode step at the context's last position
+    (``runtime.steps.make_decode_step``):
     eagerly, with the peak of ``torch.cuda.max_memory_allocated`` over the
     cell's own allocations (what was allocated before is subtracted), then
     captured in a CUDA graph and replayed ``steps`` times between CUDA
-    events.  On the CPU the eager step alone runs (nothing is measured)."""
+    events, and the allocator's reserved peak over the three.  On the CPU
+    the eager step alone runs (nothing is measured)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun, shapes
     from repro_torch.models import model as M
@@ -2432,7 +2464,7 @@ def dryrun_check_path(device, arch: str, *, cfg=None, shape=None, steps: int = 2
     device = torch.device(device)
     cuda = device.type == "cuda"
     cfg = cfg or get_config(arch)
-    shape = shape or shapes.SHAPES[DRYRUN_CHECK_SHAPE]
+    shape = shape or shapes.SHAPES[DRYRUN_CHECK_SHAPES[0]]
     rec = dryrun.run_cell(arch, shape.name, "one", cfg=cfg, shape=shape)
     if rec["status"] != "ok":
         raise AssertionError(f"dry-run {arch}/{shape.name}: {rec['status']} "
@@ -2441,13 +2473,14 @@ def dryrun_check_path(device, arch: str, *, cfg=None, shape=None, steps: int = 2
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
     b = shape.global_batch
-    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    params, draw_peak, _, _ = draw_params(device, cfg)
     dstate = {"token": torch.zeros(b, dtype=torch.long, device=device),
               "caches": M.init_cache(cfg, b, shape.seq_len, device=device),
               "pos": torch.full((b,), shape.seq_len - 1, dtype=torch.long, device=device)}
     step = rt_steps.make_decode_step(cfg)
     out = {"record": rec}
     if cuda:
+        out["draw_peak_bytes"] = draw_peak
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
@@ -2460,11 +2493,17 @@ def dryrun_check_path(device, arch: str, *, cfg=None, shape=None, steps: int = 2
         raise AssertionError(f"{arch}: decode logits {tuple(logits.shape)}, finite "
                              f"{bool(torch.isfinite(logits).all())}")
     if cuda:
+        # the warm-up's stream and the graph's pool reuse no cached block of
+        # the eager step's: return those first (starcoder2-15b's decode_32k
+        # cell leaves the card ~8 GB beside its params and caches)
+        torch.cuda.empty_cache()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side), torch.no_grad():
             step(params, dstate)                          # warm-up off the capture
         torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         with torch.no_grad(), torch.cuda.graph(graph):
             static = step(params, dstate)
@@ -2477,6 +2516,7 @@ def dryrun_check_path(device, arch: str, *, cfg=None, shape=None, steps: int = 2
         end.record()
         end.synchronize()
         out["step_ms"] = start.elapsed_time(end) / steps
+        out["reserved_bytes"] = torch.cuda.max_memory_reserved()
         if not torch.isfinite(static["logits"]).all():
             raise AssertionError(f"{arch}: the graphed decode step gave non-finite logits")
         del graph, static
@@ -2484,45 +2524,87 @@ def dryrun_check_path(device, arch: str, *, cfg=None, shape=None, steps: int = 2
     return out
 
 
+def cell_reckoning(cfg, batch: int, context: int) -> dict:
+    """Bytes a dry-run decode cell holds, from its specs alone: the params
+    (every leaf at its dtype), the decode state for ``batch`` rows of
+    ``context`` tokens (a windowed cache is a ring of ``window`` slots; the
+    SSD state float32) and the largest float32 layer slice ``init_params``
+    draws at a time."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import spec_leaves, torch_dtype
+
+    dtype = torch_dtype(cfg.dtype)
+    r = reckoning(cfg, capacity=0, max_batch=0)
+    cache = sum(math.prod(p.shape) * p.with_dtype(dtype).itemsize
+                for p in spec_leaves(M.cache_specs(cfg, batch, context)))
+    return {"params": r["params"], "cache": cache, "slice": r["slice"],
+            "total": r["params"] + cache}
+
+
 def phase_dryrun_check(device, card: str) -> dict:
-    """:func:`dryrun_check_path` for each cell of ``DRYRUN_CHECK_ARCHS`` at
-    ``long_500k`` (batch 1, context 524288), one model's weights at a time:
-    the measured peak must be within ``DRYRUN_MEMORY_RTOL`` of the dry-run's
-    ``per_device_bytes``, and no graphed step faster than
-    ``DRYRUN_TIME_FLOOR`` x its ``step_time_bound_s`` (no card beats its
-    roofline: a faster step means the count is short); the ``HW`` table
-    must be this card."""
+    """:func:`dryrun_check_path` for each cell of ``DRYRUN_CHECK_ARCHS`` x
+    ``DRYRUN_CHECK_SHAPES``, one model's weights at a time, each after the
+    cell's reckoning is printed: the measured peak must be within
+    ``DRYRUN_MEMORY_RTOL`` of the dry-run's ``per_device_bytes``, and no
+    graphed step faster than ``DRYRUN_TIME_FLOOR`` x its
+    ``step_time_bound_s`` (no card beats its roofline: a faster step means
+    the count is short); the ``HW`` table must be this card."""
+    from repro_torch.configs import get_config
     from repro_torch.core import configstore
+    from repro_torch.launch import shapes
 
     t0 = time.perf_counter()
     check_hw()
     out = {}
-    for arch in DRYRUN_CHECK_ARCHS:
-        _release()
-        r = dryrun_check_path(device, arch)
-        rec = r["record"]
-        pred, got = rec["per_device_bytes"], r["peak_bytes"]
-        bound_ms = 1e3 * rec["step_time_bound_s"]
-        print(f"dryrun-check: {arch}/{DRYRUN_CHECK_SHAPE} on one: per_device_bytes "
-              f"{pred / 1e9:.4f} GB (argument {rec['memory']['argument_size_in_bytes'] / 1e9:.4f}"
-              f", temp {rec['memory']['temp_size_in_bytes'] / 1e9:.4f}), fits {rec['fits']}; "
-              f"flops {rec['counters']['flops']:.6g}, bytes {rec['counters']['bytes_accessed']:.6g}"
-              f"; compute {1e3 * rec['roofline']['compute_s']:.4f} ms, memory "
-              f"{1e3 * rec['roofline']['memory_s']:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({rec['bottleneck']}), roofline_fraction {rec['roofline_fraction']:.6f}")
-        print(f"dryrun-check: {arch}: measured peak allocated {got / 1e9:.4f} GB "
-              f"({got / pred - 1:+.2%} on the dry-run), graphed decode step "
-              f"{r['step_ms']:.4f} ms by events ({r['step_ms'] / bound_ms:.3f} x its bound) "
-              f"({card})")
-        if abs(got - pred) > DRYRUN_MEMORY_RTOL * pred:
-            raise AssertionError(f"{arch}: measured peak {got} bytes is not within "
-                                 f"{DRYRUN_MEMORY_RTOL:.0%} of the dry-run's {pred:.0f}")
-        if r["step_ms"] < DRYRUN_TIME_FLOOR * bound_ms:
-            raise AssertionError(f"{arch}: a {r['step_ms']:.4f} ms step beats "
-                                 f"{DRYRUN_TIME_FLOOR} x its {bound_ms:.4f} ms bound: the "
-                                 "dry-run's count is short")
-        out[arch] = {"per_device_bytes": pred, "peak_bytes": got, "step_ms": r["step_ms"],
-                     "bound_ms": bound_ms, "bottleneck": rec["bottleneck"]}
+    for shape_name in DRYRUN_CHECK_SHAPES:
+        shape = shapes.SHAPES[shape_name]
+        for arch in DRYRUN_CHECK_ARCHS:
+            _release()
+            t_cell = time.perf_counter()
+            cfg = get_config(arch)
+            rk = cell_reckoning(cfg, shape.global_batch, shape.seq_len)
+            print(f"dryrun-check: {arch}/{shape_name} reckoning: params {rk['params'] / 1e9:.4f} "
+                  f"GB, decode state for batch {shape.global_batch} x context {shape.seq_len} "
+                  f"(cache length {cfg.cache_len(shape.seq_len)}) {rk['cache'] / 1e9:.4f} GB, "
+                  f"together {rk['total'] / 1e9:.4f} GB of the card's "
+                  f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; the draw's "
+                  f"largest float32 layer slice {rk['slice'] / 1e9:.3f} GB")
+            r = dryrun_check_path(device, arch, cfg=cfg, shape=shape,
+                                  steps=DRYRUN_CHECK_REPLAYS[shape_name])
+            rec = r["record"]
+            pred, got = rec["per_device_bytes"], r["peak_bytes"]
+            bound_ms = 1e3 * rec["step_time_bound_s"]
+            print(f"dryrun-check: {arch}/{shape_name} on one: per_device_bytes "
+                  f"{pred / 1e9:.4f} GB (argument "
+                  f"{rec['memory']['argument_size_in_bytes'] / 1e9:.4f}, temp "
+                  f"{rec['memory']['temp_size_in_bytes'] / 1e9:.4f}), fits {rec['fits']}; flops "
+                  f"{rec['counters']['flops']:.6g}, bytes {rec['counters']['bytes_accessed']:.6g}"
+                  f"; compute {1e3 * rec['roofline']['compute_s']:.4f} ms, memory "
+                  f"{1e3 * rec['roofline']['memory_s']:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({rec['bottleneck']}), roofline_fraction {rec['roofline_fraction']:.6f}")
+            draw_limit = (rk["params"] + rk["slice"]) * (1 + DRAW_SLACK)
+            print(f"dryrun-check: {arch}/{shape_name}: the draw's peak allocated "
+                  f"{r['draw_peak_bytes'] / 1e9:.4f} GB (limit params + slice + "
+                  f"{DRAW_SLACK:.0%}: {draw_limit / 1e9:.4f} GB)")
+            if r["draw_peak_bytes"] > draw_limit:
+                raise AssertionError(f"{arch}/{shape_name}: the draw peaked at "
+                                     f"{r['draw_peak_bytes']} B, over {draw_limit:.0f}")
+            print(f"dryrun-check: {arch}/{shape_name}: measured peak allocated {got / 1e9:.4f} GB "
+                  f"({got / pred - 1:+.2%} on the dry-run), graphed decode step "
+                  f"{r['step_ms']:.4f} ms by events ({r['step_ms'] / bound_ms:.3f} x its bound); "
+                  f"memory reserved at the cell's peak {r['reserved_bytes'] / 2**30:.2f} GiB; "
+                  f"cell wall {time.perf_counter() - t_cell:.1f} s ({card})")
+            if abs(got - pred) > DRYRUN_MEMORY_RTOL * pred:
+                raise AssertionError(f"{arch}/{shape_name}: measured peak {got} bytes is not "
+                                     f"within {DRYRUN_MEMORY_RTOL:.0%} of the dry-run's "
+                                     f"{pred:.0f}")
+            if r["step_ms"] < DRYRUN_TIME_FLOOR * bound_ms:
+                raise AssertionError(f"{arch}/{shape_name}: a {r['step_ms']:.4f} ms step beats "
+                                     f"{DRYRUN_TIME_FLOOR} x its {bound_ms:.4f} ms bound: the "
+                                     "dry-run's count is short")
+            out[(arch, shape_name)] = {
+                "per_device_bytes": pred, "peak_bytes": got, "step_ms": r["step_ms"],
+                "bound_ms": bound_ms, "bottleneck": rec["bottleneck"], "reckoning": rk}
     _release()
     print(f"dryrun-check: HW {HW['fingerprint']} = {configstore.hardware_fingerprint()}; phase "
           f"wall {time.perf_counter() - t0:.1f} s")
@@ -2956,8 +3038,9 @@ def phase_dryrun(twin, card: str) -> dict:
 def start_cold_warm() -> Background:
     """``python -m repro_torch.bench.runner --quick --only compile_cold_warm``
     on the card, in the background: its 13 children wait on their imports,
-    on ``nvcc`` and on each other, and the serving phases of the MoE and
-    cross-attention models run beside them.  The runner holds the JSON to
+    on ``nvcc`` and on each other, and the serving phases of the MoE,
+    cross-attention and windowed dense models run beside them.  The runner
+    holds the JSON to
     ``check_compile_cold_warm``."""
     return start_twin("compile_cold_warm", quick=True, timeout=600.0)
 
@@ -2989,7 +3072,8 @@ def phase_cold_warm(twin, card: str) -> dict:
           f"{res['cold_libraries'][0]}; counters {res['counters']}; launches per child "
           f"{res['launches']}; {len(res['launches'])} children in {res['wall_s']:.1f} s ({card})")
     print(f"cold-warm: ran {time.perf_counter() - twin.t0:.1f} s beside the serving phases of "
-          f"the MoE and cross-attention models; waited {waited:.1f} s for it at its end")
+          f"the MoE, cross-attention and windowed dense models; waited {waited:.1f} s for it at "
+          f"its end")
     return {**res, "path_launches": {"flash_attention": sum(res["launches"]), "ssd": 0,
                                      "rmsnorm": 0}}
 
@@ -3138,13 +3222,15 @@ def train_flops(cfg, batch: int, seq: int, frames: int = 0) -> float:
     N the active parameters: a MoE token runs top-k of its experts; an
     encoder-decoder's encoder runs on ``frames`` frames a row, counted here
     as if they were as many as the tokens) plus attention's 12·S_k·H·D per
-    query and layer: causal self-attention's halved by the mask, an
-    encoder's over its frames, cross-attention's over the source (frames,
-    or a VLM's modal tokens)."""
+    query and layer: causal self-attention's over the keys its mask keeps
+    (S_k = S/2 on average; under a window w < S, w - w²/2S), an encoder's
+    over its frames, cross-attention's over the source (frames, or a VLM's
+    modal tokens)."""
     tokens = batch * seq
     hd = 12.0 * cfg.n_heads * cfg.hd
     causal = cfg.n_layers if cfg.family in ("dense", "moe", "hybrid", "encdec", "vlm") else 0
-    attn = hd * causal * tokens * seq / 2
+    window = min(cfg.window or seq, seq)
+    attn = hd * causal * tokens * (window - window * window / (2 * seq))
     if cfg.family == "encdec":
         attn += hd * (cfg.enc_layers * batch * frames * frames + cfg.n_layers * tokens * frames)
     if cfg.family == "vlm":
@@ -3164,7 +3250,7 @@ def _remat_factor(cfg, batch: int, seq: int) -> int:
 
 def train_main_path(device, cfg, *, batch: int, seq: int, steps: int,
                     resume_to: Optional[int], ckpt_every: int, ckpt_dir, ckpt_overrides=None,
-                    continued: bool = False) -> dict:
+                    continued: bool = False, norm_overflow: bool = False) -> dict:
     """``run_training`` for ``steps`` steps with a checkpoint every
     ``ckpt_every`` into ``ckpt_dir``, then (unless ``resume_to`` is None)
     again to ``resume_to`` steps, which must resume where the first run
@@ -3175,7 +3261,11 @@ def train_main_path(device, cfg, *, batch: int, seq: int, steps: int,
     ``continued``, the first run's final state also steps on in memory to
     ``resume_to`` (no save, no restore; the loop's batches and
     ``lr_scale``): ``out["continued"]`` holds those steps' metrics, to set
-    beside the resumed run's."""
+    beside the resumed run's.  With ``norm_overflow`` a gradient norm may
+    be +inf, where the float32 sum of squares overflows (as the
+    reference's ``global_norm`` does; the clip then zeroes the update), and
+    every leaf of each run's final state must be finite instead: a
+    non-finite gradient times the clip's zero is NaN there."""
     from repro_torch.data.pipeline import PackedBatcher, SyntheticCorpus
     from repro_torch.runtime.steps import train_step_for
     from repro_torch.runtime.train_loop import run_training, train_settings, workload_signature
@@ -3204,9 +3294,7 @@ def train_main_path(device, cfg, *, batch: int, seq: int, steps: int,
         if launches != expected:
             raise AssertionError(f"train launches {launches} over {len(done)} steps; expected "
                                  f"{expected}")
-        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
-                   for r in timer.rows):
-            raise AssertionError(f"a non-finite loss or gradient norm: {timer.rows}")
+        _check_finite(timer.rows, out["state"] if norm_overflow else None)
         runs.append({"rows": timer.rows, "launches": launches, "wall_s": wall,
                      "ckpt": out["ckpt_counters"], "data": out["data_counters"],
                      "peak_bytes": (torch.cuda.max_memory_allocated()
@@ -3225,6 +3313,7 @@ def train_main_path(device, cfg, *, batch: int, seq: int, steps: int,
                  for k, v in data.batch_at(step).items()}
             first_state, m = step_fn(first_state, b, scale)
             rows.append({"step": step, **{k: float(v) for k, v in m.items()}})
+        _check_finite(rows, first_state if norm_overflow else None)
         del first_state
     done = [[r["step"] for r in run["rows"]] for run in runs]
     want = [list(range(steps))] + ([] if resume_to is None else [list(range(steps, resume_to))])
@@ -3233,6 +3322,21 @@ def train_main_path(device, cfg, *, batch: int, seq: int, steps: int,
                              f"second resume at step {steps}")
     return {"runs": runs, "launches": {k: sum(r["launches"][k] for r in runs)
                                        for k in kernels}, "continued": rows}
+
+
+def _check_finite(rows: list, state=None) -> None:
+    """Every loss and gradient norm finite; with ``state``, a gradient norm
+    may be +inf (never NaN) and every leaf of ``state`` must be finite."""
+    from repro_torch.tree import leaves_with_paths
+
+    norm_ok = ((lambda n: not math.isnan(n)) if state is not None else math.isfinite)
+    if not all(math.isfinite(r["loss"]) and norm_ok(r["grad_norm"]) for r in rows):
+        raise AssertionError(f"a non-finite loss or gradient norm: {rows}")
+    if state is not None:
+        bad = [path for path, t in leaves_with_paths(state)
+               if torch.is_tensor(t) and not bool(torch.isfinite(t).all())]
+        if bad:
+            raise AssertionError(f"non-finite state leaves after the steps {rows}: {bad[:5]}")
 
 
 def _train_report(label: str, cfg, batch: int, seq: int, out: dict, card: str) -> None:
@@ -3259,27 +3363,43 @@ def _train_report(label: str, cfg, batch: int, seq: int, out: dict, card: str) -
 
 def phase_train(device, card: str, name: str = "olmo-1b", batch: int = 8, seq: int = 2048,
                 steps: int = 6, resume_to: Optional[int] = None, ckpt_every: int = 3,
-                label: str = "train") -> dict:
-    """Full-width training through ``run_training`` (random bf16 weights from
-    seed 0, the port's synthetic corpus): ``steps`` steps with a checkpoint
-    every ``ckpt_every`` into a temporary directory, then (where
-    ``resume_to`` is given) a second run to ``resume_to`` steps that must
-    resume at ``steps``."""
+                label: str = "train", cfg=None, continued: bool = False,
+                norm_overflow: bool = False) -> dict:
+    """Full-width training through ``run_training`` (random weights from
+    seed 0 in the config's dtype, the port's synthetic corpus; ``cfg``: a
+    reduced rehearsal's): ``steps`` steps with a checkpoint every
+    ``ckpt_every`` into a temporary directory, then (where ``resume_to`` is
+    given) a second run to ``resume_to`` steps that must resume at
+    ``steps``.  With ``continued`` the first run's state also steps on in
+    memory, and every resumed step's loss and gradient norm must be the
+    continued one's bits.  ``norm_overflow``: see :func:`train_main_path`."""
     import tempfile
 
     from repro_torch.configs import get_config
 
-    cfg = get_config(name)
+    cfg = cfg or get_config(name)
     t0 = time.perf_counter()
-    print(f"{label}: {name} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
+    print(f"{label}: {cfg.name} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.param_count() / 1e9:.3f} B params, {cfg.dtype}), batch {batch} x seq {seq}, "
           f"{steps} steps" + ("" if resume_to is None else f" then resume to {resume_to}")
           + f", checkpoint every {ckpt_every} on {card}")
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{label}_") as td:
         out = train_main_path(device, cfg, batch=batch, seq=seq, steps=steps,
-                              resume_to=resume_to, ckpt_every=ckpt_every, ckpt_dir=td)
+                              resume_to=resume_to, ckpt_every=ckpt_every, ckpt_dir=td,
+                              continued=continued, norm_overflow=norm_overflow)
     _train_report(label, cfg, batch, seq, out, card)
-    print(f"{label}: " + ("" if resume_to is None else f"the second run resumed at step {steps}; ")
+    if continued:
+        resumed = {r["step"]: r for r in out["runs"][1]["rows"]}
+        for r in out["continued"]:
+            got = (resumed[r["step"]]["loss"], resumed[r["step"]]["grad_norm"])
+            print(f"{label}: step {r['step']}: resumed loss {got[0]!r}, grad_norm {got[1]!r}; "
+                  f"continued in memory loss {r['loss']!r}, grad_norm {r['grad_norm']!r}")
+            if got != (r["loss"], r["grad_norm"]):
+                raise AssertionError(f"{label}: the resumed step {r['step']} is not the "
+                                     f"continued one's bits: {got} against "
+                                     f"{(r['loss'], r['grad_norm'])}")
+    print(f"{label}: " + ("" if resume_to is None else f"the second run resumed at step {steps}"
+                          + ("; resumed = continued to the bit" if continued else "") + "; ")
           + f"launches {out['launches']} = steps x {cfg.n_layers} layers x "
           f"{_remat_factor(cfg, batch, seq)} (remat)")
     print(f"{label}: phase wall {time.perf_counter() - t0:.1f} s")
@@ -3646,58 +3766,205 @@ def phase_train_encdec(device, card: str, batch: int = XATTN_TRAIN[0],
     return out
 
 
+# ------------------------------------------------------- hybrid and VLM train
+HYBRID_TRAIN = (2, 4096)     # train-hybrid: batch x seq, past hymba-1.5b's 2048 window
+VLM_TRAIN = (4, 2048)        # train-vlm: batch x seq, with the config's 1601 modal tokens a row
+
+
+def phase_train_hybrid(device, card: str, cfg=None, batch: int = HYBRID_TRAIN[0],
+                       seq: int = HYBRID_TRAIN[1]) -> dict:
+    """hymba-1.5b at full size (``cfg``: a reduced rehearsal's) through
+    ``run_training``: one step and a checkpoint, then a second run that
+    resumes at step 1 and takes it, bit-equal to the first run's state
+    stepped on in memory (:func:`phase_train`).  The sequence is past the
+    window, so the kernel's forward and the plain backward both mask it;
+    each block runs ``FlashAttentionFn`` and ``SsdFn`` side by side.  At
+    the seed-0 init the gradient grows ~10x every two layers (its norm
+    ~1.3e20 at 32 layers on the card), so its float32 sum of squares
+    overflows to +inf, as the reference's ``global_norm`` would, and the
+    clip zeroes the update: the phase takes an +inf norm and holds every
+    final state finite instead (``norm_overflow``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    cfg = cfg or get_config("hymba-1.5b")
+    chunk = ssd_ops.ssd_settings.settings_for(
+        ssd_ops.workload_signature(batch, seq, cfg.ssm_heads))["chunk"]
+    print(f"train-hybrid: {cfg.name}: window {cfg.window} < seq {seq}; attention GQA "
+          f"{cfg.n_heads}->{cfg.n_kv_heads} head dim {cfg.hd}; SSD H {cfg.ssm_heads} P "
+          f"{cfg.ssm_head_dim} N {cfg.ssm_state}, chunk {chunk} ({-(-seq // chunk)} chunks a layer "
+          f"in the plain backward); float32 pins A_log, dt_bias")
+    out = phase_train(device, card, cfg=cfg, batch=batch, seq=seq, steps=1, resume_to=2,
+                      ckpt_every=1, label="train-hybrid", continued=True, norm_overflow=True)
+    overflowed = [r["step"] for run in out["runs"] for r in run["rows"]
+                  if math.isinf(r["grad_norm"])]
+    print(f"train-hybrid: gradient norms +inf (the float32 sum of squares overflowed; the clip "
+          f"zeroed the update) at steps {overflowed}; every run's final state finite")
+    return out
+
+
+def hybrid_norm_by_depth(device, card: str, cfg=None, batch: int = HYBRID_TRAIN[0],
+                         seq: int = HYBRID_TRAIN[1], depths=(2, 4, 8, 16, 24, 32)) -> dict:
+    """Not a phase of :func:`main` (a diagnostic for other scripts): the seed-0
+    weights of hymba-1.5b (``cfg``: a reduced rehearsal's) cut to each of
+    ``depths`` layers, the corpus's first batch, in the config's dtype and
+    at full depth in float32: the gradient on the kernel's path, its norm
+    summed in float64 beside the float32 ``global_norm`` the train step
+    reports, its largest element and its non-finite elements."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.tree import tree_map
+
+    cfg = cfg or get_config("hymba-1.5b")
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    data = _first_batch(cfg, batch, seq, device)
+    runs = [(cfg.dtype, n, dataclasses.replace(cfg, n_layers=n).validate(),
+             {**params, "blocks": params["blocks"][:n]}) for n in depths]
+    runs.append(("float32", cfg.n_layers, dataclasses.replace(cfg, dtype="float32").validate(),
+                 tree_map(lambda x: x.float(), params)))
+    out = {}
+    for dtype, n, c, p in runs:
+        loss, g = _step_grads(c, p, data, "kernel")
+        row = {"loss": loss,
+               "norm_f64": math.sqrt(sum(float(torch.sum(x.double() ** 2)) for x in g.values())),
+               "global_norm": float(global_norm(list(g.values()))),
+               "max_abs": max(float(x.float().abs().max()) for x in g.values()),
+               "non_finite": sum(int((~torch.isfinite(x)).sum()) for x in g.values())}
+        print(f"hybrid-norm: {c.name} {n} layers {dtype} batch {batch} x seq {seq}: loss "
+              f"{loss:.6f}, gradient norm {row['norm_f64']:.6g} (float64 sum), global_norm "
+              f"{row['global_norm']!r} (float32, as the step), largest element "
+              f"{row['max_abs']:.4g}, non-finite elements {row['non_finite']} ({card})")
+        out[f"{dtype} {n} layers"] = row
+        del g
+    return out
+
+
+def vlm_train_cfg(cfg=None):
+    """llama-3.2-vision-11b at full width (``cfg``: a reduced rehearsal's),
+    its depth cut to one group of ``cross_attn_period`` layers: that many
+    dense blocks and one cross block."""
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config("llama-3.2-vision-11b")
+    return dataclasses.replace(cfg, n_layers=cfg.cross_attn_period).validate()
+
+
+def phase_train_vlm(device, card: str, cfg=None, batch: int = VLM_TRAIN[0],
+                    seq: int = VLM_TRAIN[1], steps: int = 3) -> dict:
+    """llama-3.2-vision-11b at full width cut to one group (:func:`vlm_train_cfg`)
+    trained from the seed's state on ``batch`` x ``seq`` seeded tokens and
+    the config's modal tokens a row, ``steps`` steps twice: the same bits in
+    both runs (:func:`train_twice_path`); the cross block's gradients go
+    through ``FlashAttentionFn``'s plain backward over the ragged source."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    full = get_config(cfg.name if cfg is not None else "llama-3.2-vision-11b")
+    cfg = vlm_train_cfg(cfg)
+    frames = cfg.num_modal_tokens
+    print(f"train-vlm: {cfg.name} full width, depth cut to {cfg.n_layers} of {full.n_layers} "
+          f"layers: one group of {cfg.cross_attn_period} dense blocks and 1 cross block (d "
+          f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params of {full.param_count() / 1e9:.3f}"
+          f", {cfg.dtype}), batch {batch} x seq {seq} with {frames} modal tokens a row, {steps} "
+          f"steps twice on {card}")
+    out = train_twice_path(device, cfg, batch=batch, seq=seq, steps=steps, frames=frames,
+                           label="train-vlm")
+    flops = train_flops(cfg, batch, seq)
+    for i, run in enumerate(out["runs"]):
+        for r in run["rows"]:
+            print(f"train-vlm: run {i + 1} step {r['step']}: loss {r['loss']!r}, grad_norm "
+                  f"{r['grad_norm']!r}, {r['ms']:.1f} ms by CUDA events, "
+                  f"{batch * seq / (r['ms'] / 1e3):.0f} tokens/s, MFU reading "
+                  f"{flops / (r['ms'] / 1e3) / PEAK_BF16_FLOPS:.3f} ({card})")
+        print(f"train-vlm: run {i + 1}: peak memory allocated {run['peak_bytes'] / 2**30:.2f} "
+              f"GiB, launches {run['launches']} (= steps x {attention_passes(cfg)} attention "
+              f"calls x {_remat_factor(cfg, batch, seq)}) ({card})")
+    print("train-vlm: both runs gave the same bits: every loss, gradient norm and state leaf")
+    print(f"train-vlm: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # ----------------------------------------------------------------- train-grad
+# Every kernel shape the full-width train phases launch (tests/
+# test_torch_train_families.py records them on the CPU and holds them here):
+# attention (batch, seq_q, seq_k, heads, kv_heads, head_dim, window, q_offset,
+# causal), as ATTN_CASES; ssd (batch, seq, heads, head_dim, state, groups)
 TRAIN_GRAD_SHAPES = {
-    # name: (batch, seq, heads, kv_heads, head_dim) / (batch, seq, heads, head_dim, state, groups)
-    "olmo-1b attention": (8, 2048, 16, 16, 128),
-    "mamba2-780m ssd": (4, 1024, 48, 64, 128, 1),
+    "olmo-1b attention": (8, 2048, 2048, 16, 16, 128, 0, 0, True),              # train
+    "mamba2-780m ssd": (4, 1024, 48, 64, 128, 1),                               # train-ssm
+    "olmoe-1b-7b attention": (4, 2048, 2048, 16, 16, 128, 0, 0, True),          # train-moe
+    # train-encdec: the encoder's and the cross attention's shape, the decoder's
+    "seamless-m4t-medium non-causal attention": (4, 1024, 1024, 16, 16, 64, 0, 0, False),
+    "seamless-m4t-medium attention": (4, 1024, 1024, 16, 16, 64, 0, 0, True),
+    # train-hybrid: the windowed GQA past its window, and the SSD beside it
+    "hymba-1.5b attention": (2, 4096, 4096, 25, 5, 64, 2048, 0, True),
+    "hymba-1.5b ssd": (2, 4096, 25, 128, 16, 1),
+    # train-vlm: the dense layers' causal GQA, the cross block over the modal
+    # tokens (a ragged last KV tile)
+    "llama-3.2-vision-11b attention": (4, 2048, 2048, 32, 8, 128, 0, 0, True),
+    "llama-3.2-vision-11b cross attention": (4, 2048, 1601, 32, 8, 128, 0, 0, False),
 }
 
 
+def grad_kind(name: str) -> str:
+    """The kernel a ``TRAIN_GRAD_SHAPES`` entry runs: "ssd" or "attention"."""
+    return "ssd" if name.endswith(" ssd") else "attention"
+
+
 def phase_train_grad(device) -> dict:
-    """At the train phases' shapes, bf16 and float32: the outputs and input
-    gradients through each kernel's autograd Function against autograd
-    through its plain version alone, within the kernels phase's tolerances
-    (tests/test_kernels.py's grid tolerances; the SSD's headroom 4)."""
+    """At every shape of ``TRAIN_GRAD_SHAPES``, bf16 and float32: the outputs
+    and input gradients through each kernel's autograd Function against
+    autograd through its plain version alone, within the kernels phase's
+    tolerances (tests/test_kernels.py's grid tolerances; the SSD's headroom
+    4).  Returns the errors by (shape name, dtype)."""
     from repro_torch.kernels.flash_attention import kernel as fa, ref as fa_ref
     from repro_torch.kernels.ssd import kernel as sk, ref as sk_ref
 
+    t0 = time.perf_counter()
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        gen = torch.Generator(device=device).manual_seed(SEED)
-        b, s, h, kh, d = TRAIN_GRAD_SHAPES["olmo-1b attention"]
-        q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(dtype)
-                       for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d), (b, s, h, d)))
-        ins = [t.requires_grad_(True) for t in (q, k, v)]
-        out = fa.flash_attention(*ins, causal=True)
-        if out.grad_fn is None or type(out.grad_fn).__name__ != "FlashAttentionFnBackward":
-            raise AssertionError(f"the attention kernel's output is not on its Function: "
-                                 f"{out.grad_fn}")
-        got = torch.autograd.grad(out, ins, do)
-        want_out = fa_ref.naive_attention(*ins, causal=True)
-        want = torch.autograd.grad(want_out, ins, do)
-        errs[("attention", dtype)] = _grad_errs(out, want_out, got, want, "qkv", TOL[dtype])
-        del q, k, v, do, ins, out, got, want_out, want
-        b, s, h, p, n, g = TRAIN_GRAD_SHAPES["mamba2-780m ssd"]
-        x, dt, A, B, C, D = _ssd_inputs((b, s, h, p, n, g), dtype, device, SEED)
-        dy = torch.randn((b, s, h, p), generator=gen, device=device).to(dtype)
-        ins = [t.clone().requires_grad_(True) for t in (x, dt, B, C)]
-        y, state = sk.ssd(ins[0], ins[1], A, ins[2], ins[3], D, chunk=64, return_state=True)
-        if type(y.grad_fn).__name__ != "SsdFnBackward" or state.grad_fn is None:
-            raise AssertionError(f"the SSD kernel's outputs are not on its Function: "
-                                 f"{y.grad_fn}, {state.grad_fn}")
-        del state
-        got = torch.autograd.grad(y, ins, dy)
-        want_y = sk_ref.ssd_chunked(ins[0], ins[1], A, ins[2], ins[3], D, chunk=64)
-        want = torch.autograd.grad(want_y, ins, dy)
-        errs[("ssd", dtype)] = _grad_errs(y, want_y, got, want, ("x", "dt", "B", "C"),
-                                          SSD_HEADROOM * TOL[dtype])
-        del x, dt, A, B, C, D, dy, ins, y, got, want_y, want
-        torch.cuda.empty_cache()
-    shapes = dict(zip(("attention", "ssd"), TRAIN_GRAD_SHAPES.values()))
-    for (kernel_name, dtype), e in errs.items():
-        print(f"train-grad: {kernel_name} {str(dtype).split('.')[-1]} at {shapes[kernel_name]}: "
+        for name, case in TRAIN_GRAD_SHAPES.items():
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            if grad_kind(name) == "attention":
+                b, sq, skv, h, kh, d, window, q_offset, causal = case
+                q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(dtype)
+                               for shape in ((b, sq, h, d), (b, skv, kh, d), (b, skv, kh, d),
+                                             (b, sq, h, d)))
+                opts = dict(causal=causal, window=window, q_offset=q_offset)
+                ins = [t.requires_grad_(True) for t in (q, k, v)]
+                out = fa.flash_attention(*ins, **opts)
+                if type(out.grad_fn).__name__ != "FlashAttentionFnBackward":
+                    raise AssertionError(f"{name}: the attention kernel's output is not on its "
+                                         f"Function: {out.grad_fn}")
+                got = torch.autograd.grad(out, ins, do)
+                want_out = fa_ref.naive_attention(*ins, **opts)
+                want = torch.autograd.grad(want_out, ins, do)
+                errs[(name, dtype)] = _grad_errs(out, want_out, got, want, "qkv", TOL[dtype])
+                del q, k, v, do, ins, out, got, want_out, want
+            else:
+                b, s, h, p, n, g = case
+                x, dt, A, B, C, D = _ssd_inputs(case, dtype, device, SEED)
+                dy = torch.randn((b, s, h, p), generator=gen, device=device).to(dtype)
+                ins = [t.clone().requires_grad_(True) for t in (x, dt, B, C)]
+                y, state = sk.ssd(ins[0], ins[1], A, ins[2], ins[3], D, chunk=64,
+                                  return_state=True)
+                if type(y.grad_fn).__name__ != "SsdFnBackward" or state.grad_fn is None:
+                    raise AssertionError(f"{name}: the SSD kernel's outputs are not on its "
+                                         f"Function: {y.grad_fn}, {state.grad_fn}")
+                del state
+                got = torch.autograd.grad(y, ins, dy)
+                want_y = sk_ref.ssd_chunked(ins[0], ins[1], A, ins[2], ins[3], D, chunk=64)
+                want = torch.autograd.grad(want_y, ins, dy)
+                errs[(name, dtype)] = _grad_errs(y, want_y, got, want, ("x", "dt", "B", "C"),
+                                                 SSD_HEADROOM * TOL[dtype])
+                del x, dt, A, B, C, D, dy, ins, y, got, want_y, want
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    for (name, dtype), e in errs.items():
+        print(f"train-grad: {name} {str(dtype).split('.')[-1]} at {TRAIN_GRAD_SHAPES[name]}: "
               + ", ".join(f"{k} max_abs_err {v:.3g}" for k, v in e.items()))
+    print(f"train-grad: phase wall {time.perf_counter() - t0:.1f} s")
     return errs
 
 
@@ -3754,24 +4021,41 @@ class _PerturbedAttention:
         self.ops.flash_attention = self.orig
 
 
+def _first_batch(cfg, batch: int, seq: int, device) -> dict:
+    """The port's synthetic corpus's first batch (seed 0) on ``device``."""
+    from repro_torch.data.pipeline import PackedBatcher, SyntheticCorpus
+
+    corpus = PackedBatcher(SyntheticCorpus(cfg.vocab_size, seed=0), batch, seq)
+    return {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
+            for k, v in corpus.batch_at(0).items()}
+
+
 def _step_grads(cfg, params: dict, batch: dict, impl: str) -> tuple:
     """(loss, {leaf path: gradient}) of the train loss at ``params`` with the
-    attention's ``impl`` pinned for the batch's workload."""
+    attention's ``impl`` pinned for the batch's workload ("naive" or
+    "kernel"), and the SSD's with it (the plain path's "chunked")."""
     from repro_torch.core import configstore
-    from repro_torch.kernels.flash_attention.ops import workload_signature
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.models import model as M
     from repro_torch.runtime.steps import cast_for_compute
     from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
     b, s = batch["tokens"].shape
-    wl = workload_signature(b, s, s, cfg.hd)
-    configstore.set_override("torch_flash_attention", wl, {"impl": impl})
+    pins = [("torch_flash_attention", attn_ops.workload_signature(b, s, s, cfg.hd),
+             {"impl": impl})]
+    if cfg.family in ("ssm", "hybrid"):
+        pins.append(("torch_ssd_kernel", ssd_ops.workload_signature(b, s, cfg.ssm_heads),
+                     {"impl": "kernel" if impl == "kernel" else "chunked"}))
+    for component, wl, settings in pins:
+        configstore.set_override(component, wl, settings)
     try:
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss, _ = M.loss_fn(cast_for_compute(live, cfg), cfg, batch)
         grads = torch.autograd.grad(loss, leaves(live))
     finally:
-        configstore.clear_override("torch_flash_attention", wl)
+        for component, wl, _ in pins:
+            configstore.clear_override(component, wl)
     return float(loss.detach()), dict(zip((k for k, _ in leaves_with_paths(params)), grads))
 
 
@@ -3792,32 +4076,28 @@ def _grad_diff(got: dict, want: dict) -> tuple:
 
 
 def phase_train_step_grad(device, card: str, cfg=None, batch: int = 8, seq: int = 2048,
-                          depths=(2, 4, 8), eps: float = 2.0 ** -23) -> dict:
+                          depths=(2, 4, 8), eps: float = 2.0 ** -23,
+                          dtypes=("float32", "bfloat16")) -> dict:
     """Whole-step gradients of ``cfg`` (full-width OLMo-1B unless given) on
-    its seed-0 weights and the corpus's first batch, bf16 and float32: the
+    its seed-0 weights and the corpus's first batch, in ``dtypes``: the
     kernel's path against the plain path at ``depths[0]`` layers and at
     full depth (``STEP_GRAD_TOL``; ``eps`` is the float32 kernel's error,
-    the full-depth yardstick's perturbation); then the norm at the other
-    cut depths and over the first 8 batches (the largest leaf and embedding
-    rows of each), bf16 on the kernel's path."""
+    the full-depth yardstick's perturbation; a ``cfg`` of ``depths[0]``
+    layers is held once); then the norm at the other cut depths, bf16 on
+    the kernel's path."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import PackedBatcher, SyntheticCorpus
     from repro_torch.models import model as M
     from repro_torch.tree import tree_map
 
     t0 = time.perf_counter()
     cfg = cfg or get_config("olmo-1b")
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
-    corpus = PackedBatcher(SyntheticCorpus(cfg.vocab_size, seed=0), batch, seq)
-
-    def batch_at(i):
-        return {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
-                for k, v in corpus.batch_at(i).items()}
+    data = _first_batch(cfg, batch, seq, device)
 
     def cut(tree, n_layers):
         return {**tree, "blocks": tree["blocks"][:n_layers]}
 
-    data, out, failed = batch_at(0), {}, []
+    out, failed = {}, []
 
     def report(n_layers, dtype, k_loss, k_norms, norm_rel, leaf_rel, base, tol_norm, tol_leaf):
         worst = max(leaf_rel, key=leaf_rel.get)
@@ -3840,7 +4120,7 @@ def phase_train_step_grad(device, card: str, cfg=None, batch: int = 8, seq: int 
             "grad_norm": kn, "against": base, "grad_norm_rel": norm_rel, "worst_leaf": worst,
             "worst_leaf_rel": leaf_rel[worst], "tol": [tol_norm, tol_leaf]}
 
-    for n_layers in (depths[0], cfg.n_layers):
+    for n_layers in dict.fromkeys((depths[0], cfg.n_layers)):
         f32 = dataclasses.replace(cfg, dtype="float32", n_layers=n_layers).validate()
         p = cut(tree_map(lambda x: x.float(), params), n_layers)
         p_loss, truth = _step_grads(f32, p, data, "naive")
@@ -3875,6 +4155,9 @@ def phase_train_step_grad(device, card: str, cfg=None, batch: int = 8, seq: int 
         report(n_layers, "float32", k_loss, _norms(k_grads), norm_rel, leaf_rel,
                "the plain path", tol_norm, tol_leaf)
         del k_grads, p
+        if "bfloat16" not in dtypes:
+            del truth
+            continue
         bf = dataclasses.replace(cfg, n_layers=n_layers).validate()
         p_loss, p_grads = _step_grads(bf, cut(params, n_layers), data, "naive")
         k_loss, k_grads = _step_grads(bf, cut(params, n_layers), data, "kernel")
@@ -3895,18 +4178,24 @@ def phase_train_step_grad(device, card: str, cfg=None, batch: int = 8, seq: int 
         print(f"train-step-grad: bf16 kernel path cut to {n_layers} layers: grad_norm "
               f"{_total(_norms(g)):.6g}")
         del g
-    for i in range(8):
-        _, g = _step_grads(cfg, params, batch_at(i), "kernel")
-        norms = _norms(g)
-        vals, ids = torch.topk(torch.linalg.vector_norm(g["embed"].float(), dim=-1), 3)
-        print(f"train-step-grad: seed-0 weights, batch {i}: grad_norm {_total(norms):.6g}, "
-              f"largest leaf {max(norms, key=norms.get)}, largest embed rows "
-              + ", ".join(f"token {int(t)} {float(v):.4g}" for t, v in zip(ids, vals)))
-        del g
     del params
     torch.cuda.empty_cache()
     print(f"train-step-grad: phase wall {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def phase_train_step_grad_hybrid(device, card: str, cfg=None, batch: int = HYBRID_TRAIN[0],
+                                 seq: int = HYBRID_TRAIN[1]) -> dict:
+    """hymba-1.5b at full width cut to 2 layers (``cfg``: a reduced
+    rehearsal's, cut the same) in float32 at train-hybrid's shape: the
+    whole step's gradients on the kernel's path (flash attention past the
+    window and the SSD side by side) against the plain path, within
+    ``STEP_GRAD_TOL`` (:func:`phase_train_step_grad`)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(cfg or get_config("hymba-1.5b"), n_layers=2).validate()
+    return phase_train_step_grad(device, card, cfg, batch=batch, seq=seq, depths=(2,),
+                                 dtypes=("float32",))
 
 
 def _grad_errs(out, want_out, got, want, names, tol: float) -> dict:
@@ -3931,8 +4220,9 @@ def _grad_errs(out, want_out, got, want, names, tol: float) -> dict:
 def start_fault() -> Background:
     """``python -m repro_torch.bench.runner --only fault_tolerance`` on the
     card, in the background: its children are fresh interpreters of reduced
-    OLMo-1B that mostly wait on their imports, and the train-ssm,
-    train-grad, agent and optimizer phases run beside them.  The full twin,
+    OLMo-1B that mostly wait on their imports, and dryrun-check-sharded,
+    the train phases, the agent and the optimizer phase run beside them.
+    The full twin,
     not the quick one: with the quick twin's 6 samples a side the
     permutation test's p is 0.010-0.017 even when every async sample is
     below every blocking one, so a single slow async save on the card's
@@ -3964,8 +4254,9 @@ def phase_fault(twin, card: str) -> dict:
           f"async blocked ms median {np.median(res['ckpt_overhead']['async_blocked_ms']):.2f} vs "
           f"blocking {np.median(res['ckpt_overhead']['blocking_blocked_ms']):.2f} "
           f"({v['verdict']}, p={v['p_value']}) ({card})")
-    print(f"fault: ran {time.perf_counter() - twin.t0:.1f} s beside the train-ssm, train-grad, "
-          f"agent and optimizer phases; waited {waited:.1f} s for it at its end")
+    print(f"fault: ran {time.perf_counter() - twin.t0:.1f} s beside dryrun-check-sharded, the "
+          f"train phases, the agent and the optimizer phase; waited {waited:.1f} s for it at its "
+          f"end")
     return res
 
 
@@ -4382,10 +4673,8 @@ def main() -> int:
     path_launches["train-encdec"] = phase_train_encdec(device, card)["launches"]
     _release()
     _memory("train-encdec", t_start)
-    path_launches["cold-warm"] = phase_cold_warm(cold_warm, card)["path_launches"]
-    _memory("cold-warm", t_start)
-    # StarCoder2-15B at full size, once the cold/warm children are gone: its
-    # stacked float32 draws take the allocator to ~73 GiB reserved
+    # StarCoder2-15B at full size beside the cold/warm children's last steps
+    # (its draw peaks at params + one float32 layer: ~47 GiB reserved)
     serve = phase_serve(device, card, DENSE_WINDOW_NAME, n_requests=len(DENSE_WINDOW_WIDTHS),
                         widths=DENSE_WINDOW_WIDTHS, capacity=DENSE_WINDOW_CAPACITY,
                         max_width=max(DENSE_WINDOW_WIDTHS), label="serve-dense-window",
@@ -4396,6 +4685,9 @@ def main() -> int:
     del serve, graphs
     _release()
     _memory("serve-dense-window, graphs-dense-window", t_start)
+    # the cold/warm children are gone before Command-R fills the card
+    path_launches["cold-warm"] = phase_cold_warm(cold_warm, card)["path_launches"]
+    _memory("cold-warm", t_start)
     # Command-R-35B at full size, then DeepSeek-67B at full width cut to 20
     # layers: one model's weights at a time, and one cache at a time in the
     # graphs phase (Command-R's params and cache leave ~13 GB of the card)
@@ -4413,24 +4705,33 @@ def main() -> int:
         _memory(f"serve-dense-large, graphs-dense-large ({name})", t_start)
     phase_dryrun_check(device, card)
     _memory("dryrun-check", t_start)
+    # the fault twin's small children (beside dryrun-check's 77.3 GB cell they
+    # might not fit) from here on: it takes as long as every phase after it
+    fault = start_fault()
     sharded = phase_dryrun_check_sharded(device, card)
     path_launches["dryrun-check-sharded"] = {
         name: sum(c["launches"][name] for c in sharded.values()) for name in _kernels()}
     _memory("dryrun-check-sharded", t_start)
-    # one run: the resume is held by train-ssm, train-moe and the fault twin
-    path_launches["train"] = phase_train(device, card)["launches"]
+    # one run and one save: train-hybrid, train-moe and the fault twin hold the resume
+    path_launches["train"] = phase_train(device, card, ckpt_every=6)["launches"]
     phase_train_profile(device, card)
     _memory("train", t_start)
     path_launches["training-grid"] = phase_training_grid(device, card)["launches"]
     _memory("training-grid", t_start)
-    fault = start_fault()
+    # one run: train-hybrid carries the SSD through checkpoint -> resume
     path_launches["train-ssm"] = phase_train(device, card, "mamba2-780m", batch=4, seq=1024,
-                                             steps=1, resume_to=2, ckpt_every=1,
-                                             label="train-ssm")["launches"]
+                                             steps=1, ckpt_every=1, label="train-ssm")["launches"]
     _memory("train-ssm", t_start)
+    path_launches["train-hybrid"] = phase_train_hybrid(device, card)["launches"]
+    _release()
+    _memory("train-hybrid", t_start)
+    path_launches["train-vlm"] = phase_train_vlm(device, card)["launches"]
+    _release()
+    _memory("train-vlm", t_start)
     grad_errs = phase_train_grad(device)
-    step_grad = phase_train_step_grad(device, card,
-                                      eps=grad_errs[("attention", torch.float32)]["out"])
+    step_grad = phase_train_step_grad(
+        device, card, eps=grad_errs[("olmo-1b attention", torch.float32)]["out"])
+    step_grad_hybrid = phase_train_step_grad_hybrid(device, card)
     _memory("train-grad", t_start)
     path_launches["agent"] = phase_agent(device, card)["launches"]
     _memory("agent", t_start)
@@ -4447,8 +4748,12 @@ def main() -> int:
         return sum(by_path.values()), by_path
 
     def grad_err(kernel_name):
-        return {str(dtype).split(".")[-1]: max(e.values())
-                for (k, dtype), e in grad_errs.items() if k == kernel_name}
+        worst = {}
+        for (name, dtype), e in grad_errs.items():
+            if grad_kind(name) == kernel_name:
+                key = str(dtype).split(".")[-1]
+                worst[key] = max(worst.get(key, 0.0), *e.values())
+        return worst
 
     timed = ("ms", "ms_device", "plain_ms", "plain_ms_device", "library_ms",
              "library_ms_device", "bound_ms", "bound_by")
@@ -4467,13 +4772,15 @@ def main() -> int:
               timing["shape"], source_float32="src/repro_torch/csrc/flash_attention.cu",
               shapes=timing["shapes"], build={k: builds[k] for k in ("flash_attention_tc",
                                                                       "flash_attention")},
-              train_grad_max_abs_err=grad_err("attention"), train_step_grad=step_grad),
+              train_grad_max_abs_err=grad_err("attention"),
+              train_step_grad={"olmo-1b": step_grad, "hymba-1.5b": step_grad_hybrid}),
         entry("ssd", "src/repro_torch/csrc/ssd_tc.cu", "src/repro/kernels/ssd/kernel.py:74",
               ssd_errs["y"], timing_ssd, timing_ssd["shape"] + " chunk 64",
               source_float32="src/repro_torch/csrc/ssd.cu", shapes=timing_ssd["shapes"],
               max_abs_err_state=ssd_errs["state"],
               build={k: builds[k] for k in ("ssd_tc", "ssd")},
-              train_grad_max_abs_err=grad_err("ssd")),
+              train_grad_max_abs_err=grad_err("ssd"),
+              train_step_grad={"hymba-1.5b": step_grad_hybrid}),
         entry("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm/kernel.py:33", rms_errs, timing_rms["rmsnorm"],
               "bf16 r16384 d1536, bf16 scale", residual=timing_rms["rmsnorm_res"],

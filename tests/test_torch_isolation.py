@@ -547,8 +547,9 @@ def test_chip_smoke_train_paths_on_cpu(chip_smoke, tmp_path):
     assert chip_smoke.train_flops(full, 8, 2048) == pytest.approx(want)
     assert chip_smoke.train_flops(get_config("mamba2-780m"), 4, 1024) == pytest.approx(
         6.0 * get_config("mamba2-780m").param_count() * 4 * 1024)
-    assert chip_smoke.TRAIN_GRAD_SHAPES["olmo-1b attention"] == (8, 2048, full.n_heads,
-                                                                 full.n_kv_heads, full.hd)
+    assert chip_smoke.TRAIN_GRAD_SHAPES["olmo-1b attention"] == (8, 2048, 2048, full.n_heads,
+                                                                 full.n_kv_heads, full.hd, 0, 0,
+                                                                 True)
     m2 = get_config("mamba2-780m")
     assert chip_smoke.TRAIN_GRAD_SHAPES["mamba2-780m ssd"] == (4, 1024, m2.ssm_heads,
                                                                m2.ssm_head_dim, m2.ssm_state,
