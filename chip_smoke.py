@@ -44,7 +44,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                      compiled chunks, bf16 through ``ssd_tc`` and float32
                      through ``ssd`` (y and the final state; mamba2's and
                      hymba's prefill widths 2…1024, the grid's b2s512h48,
-                     G = 2, non-pow2 S, the examples' reduced mamba2-780m) and RMSNorm (tests/test_kernels.py's
+                     G = 2, non-pow2 S, the examples' reduced mamba2-780m,
+                     hymba's head-dim shard P 8 at N 16 and 128) and RMSNorm (tests/test_kernels.py's
                      shapes, the served widths 1536 and 1600 at 8…16384
                      rows, with and without the residual, every compiled
                      instance at two ragged shapes and at the grid's two).
@@ -89,8 +90,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                      window 4096) beside SDPA with the window's band as
                      its mask and the plain version 2048 query rows a call;
                      the SSD scan (bf16) at mamba2-780m's and hymba-1.5b's
-                     widest prefill and the grid's two shapes, and the
-                     float32 FMA kernel at mamba2-780m's.
+                     widest prefill, the grid's two shapes and 33b's
+                     hymba shard (B2 S32768 H25 P8, its plain version
+                     by events over one call), and the float32 FMA
+                     kernel at mamba2-780m's.
   9. (profile: cut to keep the script inside its time; every graphs phase
                      prints the graphed step's busy share and costliest
                      kernels)
@@ -371,18 +374,23 @@ Phases, in order; any failure exits non-zero before the result lines:
                      olmo-1b/prefill_32k (head-parallel flash at B2 S32768
                      H1 D128), deepseek-67b/decode_32k (GQA with K/V
                      replicated, the sequence-sharded cache's distributed
-                     flash-decode) and olmoe-1b-7b/train_4k (the local_map
-                     MoE, FSDP gathers, the recomputing backward): each
+                     flash-decode), olmoe-1b-7b/train_4k (the local_map
+                     MoE, FSDP gathers, the recomputing backward) and
+                     hymba-1.5b/prefill_32k (sequence-parallel flash, the
+                     SSD at its head-dim shard B2 S32768 H25 P8 N16): each
                      cell's sharded record (``run_cell(..., "single")``,
-                     meta DTensors in a fake group) is printed, then inside
+                     meta DTensors in a fake group, read from 34's
+                     background run) is printed, then inside
                      ``launch.mesh.traced_group(mesh, "cuda")`` (the fake
                      group completes each collective without moving data)
                      rank 0's shards of its arguments at full size and one
                      step: the peak allocated must be within 10% of the
-                     record's ``per_device_bytes``; flash attention's
-                     launches must equal the step's attention calls, and
-                     the kernel must agree with its plain version at every
-                     local shape it ran (the kernels phase's tolerances); a
+                     record's ``per_device_bytes``; the record must count
+                     no SSD call at a shape without a kernel; flash
+                     attention's and the SSD's launches must equal the
+                     step's calls of each, and each kernel must agree with
+                     its plain version at every local shape it ran (the
+                     kernels phase's tolerances); a
                      second step's time by events beside
                      ``step_time_bound_s``, ungated.
  34. dryrun       — ``python -m repro_torch.launch.dryrun --mesh one`` on
@@ -392,7 +400,7 @@ Phases, in order; any failure exits non-zero before the result lines:
                      ``launch.perf``'s hillclimb of olmo-1b/train_4k
                      (patience 3, each experiment a fresh dry-run
                      interpreter) into a temporary directory and store;
-                     beside them a fourth interpreter traces 33b's three
+                     beside them a fourth interpreter traces 33b's four
                      cells on ``single`` and ``multi`` and hillclimbs
                      olmo-1b/train_4k on ``single`` into a store of its
                      own; started in the background after the build, read
@@ -566,6 +574,11 @@ SSD_CASES = [
     (1, 300, 48, 64, 128, 1),            # non-pow2 S: a ragged last chunk
     (3, 77, 4, 16, 16, 1),               # P 16, ragged
     (8, 64, 8, 16, 16, 1),               # reduced mamba2-780m, train_lm's smoke preset (examples)
+    # P 8: hymba-1.5b's head-dim shard on `single` (128 / 16), N 16 and 128
+    (2, 2048, 25, 8, 16, 1),             # the shard's heads at a 16th of prefill_32k's sequence
+    (1, 300, 25, 8, 16, 1),              # ragged last chunk, a ragged head block
+    (1, 2, 25, 8, 16, 1),                # one short chunk
+    (2, 300, 8, 8, 128, 2),              # N 128, G 2
 ]
 
 
@@ -818,6 +831,28 @@ def _ssd_inputs(case, dtype, device, seed):
     return x, dt, A, B, C, D
 
 
+def _ssd_against_plain(kernel, ref, case, dtype, chunk: int, device, seed: int) -> tuple:
+    """The SSD kernel at ``case`` (b, s, h, p, n, g) and ``chunk`` against
+    the plain ``ssd_chunked`` on seeded inputs: y within the kernels
+    phase's tolerance with the scan's headroom, the float32 final state
+    within ``SSD_STATE_TOL``; returns their max abs errors."""
+    t = _ssd_inputs(case, dtype, device, seed=seed)
+    wy, ws = ref.ssd_chunked(*t, chunk=ref.align_chunk(64, case[1]), return_state=True)
+    y, st = kernel.ssd(*t, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    tol = TOL[dtype] * SSD_HEADROOM
+    err = (y.float() - wy.float()).abs()
+    serr = (st - ws).abs()
+    if (not torch.isfinite(y).all() or not torch.isfinite(st).all()
+            or (err > tol + tol * wy.float().abs()).any()
+            or (serr > SSD_STATE_TOL + SSD_STATE_TOL * ws.abs()).any()):
+        raise AssertionError(
+            f"ssd kernel (chunk {chunk}) disagrees with ssd_chunked at {case} "
+            f"{dtype}: max abs err y {err.max().item():.3g} (tol {tol:.3g}), "
+            f"state {serr.max().item():.3g} (tol {SSD_STATE_TOL})")
+    return err.max().item(), serr.max().item()
+
+
 def phase_kernels_ssd(device) -> dict:
     """SSD kernel vs the plain ``ssd_chunked`` on the card, y and the final
     state, at every compiled chunk; returns the max abs errors of y per
@@ -829,22 +864,10 @@ def phase_kernels_ssd(device) -> dict:
         worst = 0.0
         tol = TOL[dtype] * SSD_HEADROOM
         for i, case in enumerate(SSD_CASES):
-            t = _ssd_inputs(case, dtype, device, seed=2000 + i)
-            wy, ws = ref.ssd_chunked(*t, chunk=ref.align_chunk(64, case[1]), return_state=True)
             for chunk in kernel.CHUNKS:
-                y, st = kernel.ssd(*t, chunk=chunk, return_state=True)
-                torch.cuda.synchronize()
-                err = (y.float() - wy.float()).abs()
-                serr = (st - ws).abs()
-                if (not torch.isfinite(y).all() or not torch.isfinite(st).all()
-                        or (err > tol + tol * wy.float().abs()).any()
-                        or (serr > SSD_STATE_TOL + SSD_STATE_TOL * ws.abs()).any()):
-                    raise AssertionError(
-                        f"ssd kernel (chunk {chunk}) disagrees with ssd_chunked at {case} "
-                        f"{dtype}: max abs err y {err.max().item():.3g} (tol {tol:.3g}), "
-                        f"state {serr.max().item():.3g} (tol {SSD_STATE_TOL})")
-                worst = max(worst, err.max().item())
-                state_worst = max(state_worst, serr.max().item())
+                ey, es = _ssd_against_plain(kernel, ref, case, dtype, chunk, device,
+                                            seed=2000 + i)
+                worst, state_worst = max(worst, ey), max(state_worst, es)
         errs[str(dtype).replace("torch.", "")] = worst
         print(f"kernels: ssd ({kernel.SOURCES[dtype]}) vs ssd_chunked, {dtype}: "
               f"{len(SSD_CASES)} cases x chunks {kernel.CHUNKS}, max abs err y {worst:.3g} "
@@ -1175,6 +1198,18 @@ class Background:
             self.proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out, stderr=err,
                                          start_new_session=True)
         _BACKGROUND.append(self)
+
+    def wait_for(self, path: Path, label: str) -> float:
+        """Wait until the command has written ``path`` (at most ``timeout``
+        from its start); raise if it ends or runs out of time first.  The
+        seconds spent waiting."""
+        t0 = time.perf_counter()
+        while not path.exists():
+            if self.proc.poll() is not None or time.perf_counter() - self.t0 > self.timeout:
+                raise AssertionError(f"{label}: {self.what} wrote no {path.name} "
+                                     f"(exit {self.proc.poll()})")
+            time.sleep(1.0)
+        return time.perf_counter() - t0
 
     def finish(self, label: str) -> float:
         """Wait for the command (at most ``timeout`` from its start), print
@@ -1686,7 +1721,11 @@ SSD_TIMED = {
     "hymba-1.5b prefill": (1, 1024, 25, 128, 16, 1),
     "grid b1s256h48": (1, 256, 48, 64, 128, 1),
     "grid b2s512h48": (2, 512, 48, 64, 128, 1),
+    "hymba-1.5b single shard": (2, 32768, 25, 8, 16, 1),   # dryrun-check-sharded's local shape
 }
+# the plain version loops over the chunks on the host: at the shard's 512
+# chunks a call takes 0.7-1.2 s, so this row times it by events over one call
+SSD_TIMED_PLAIN_ONCE = "hymba-1.5b single shard"
 
 
 def phase_timing_ssd(device) -> dict:
@@ -1703,9 +1742,12 @@ def phase_timing_ssd(device) -> dict:
     for name, case, dtype in timed:
         t = _ssd_inputs(case, dtype, device, seed=8)
         ms, ms_dev = _both_ms(lambda *a: kernel.ssd(*a, chunk=64, return_state=True), *t)
-        plain, plain_dev = _both_ms(
-            lambda *a: ref.ssd_chunked(*a, chunk=ref.align_chunk(64, case[1]), return_state=True),
-            *t)
+        plain_fn = lambda *a: ref.ssd_chunked(*a, chunk=ref.align_chunk(64, case[1]),
+                                              return_state=True)
+        if name == SSD_TIMED_PLAIN_ONCE:
+            plain, plain_dev = _time_ms(lambda: plain_fn(*t), 1), None
+        else:
+            plain, plain_dev = _both_ms(plain_fn, *t)
         elem, peak = (2, PEAK_BF16_FLOPS) if dtype == torch.bfloat16 else (4, PEAK_F32_FLOPS)
         bound_ms, bound_by = ssd_bound_ms(*case, elem, 64, peak)
         b, s, h, p, n, g = case
@@ -1713,9 +1755,10 @@ def phase_timing_ssd(device) -> dict:
                       "source": kernel.SOURCES[dtype], "ms": ms, "ms_device": ms_dev,
                       "plain_ms": plain, "plain_ms_device": plain_dev, "library_ms": None,
                       "library_ms_device": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        held = "not measured" if plain_dev is None else f"{plain_dev:.4f}"
         print(f"timing: ssd ({kernel.SOURCES[dtype]}) {rows[name]['shape']} chunk 64 ({name}), "
               f"events / device-held: kernel {ms:.4f} / {ms_dev:.4f} ms, plain ssd_chunked "
-              f"{plain:.4f} / {plain_dev:.4f} ms, no library call computes SSD, bound "
+              f"{plain:.4f} / {held} ms, no library call computes SSD, bound "
               f"{bound_ms:.4f} ms ({bound_by})")
         if dtype == torch.bfloat16:   # each pass of ssd_tc (the scan overlaps pass 2's end)
             passes = {next(m for m in PORT_KERNELS["ssd"] if m in k): us for k, (us, _) in
@@ -2611,8 +2654,10 @@ def phase_dryrun_check(device, card: str) -> dict:
     return out
 
 
+# hymba-1.5b's 25 SSM heads do not divide the model axis of 16: the rules
+# split its SSD head dim, 128 / 16 = 8 columns a rank
 DRYRUN_SHARDED = (("olmo-1b", "prefill_32k"), ("deepseek-67b", "decode_32k"),
-                  ("olmoe-1b-7b", "train_4k"))
+                  ("olmoe-1b-7b", "train_4k"), ("hymba-1.5b", "prefill_32k"))
 DRYRUN_SHARDED_MESH = "single"
 
 
@@ -2664,10 +2709,10 @@ def sharded_args(cfg, shape, mesh, rules, device_mesh, device, seed: int = 0) ->
 
 
 def dryrun_sharded_path(device, arch: str, shape_name: str, mesh_name: str, *, cfg=None,
-                        shape=None) -> dict:
+                        shape=None, rec: Optional[dict] = None) -> dict:
     """One cell of a production mesh, rank 0's local program on ``device``.
-    The dry-run's record (``launch.dryrun.run_cell``: meta DTensors in a
-    fake group, nothing allocated), then inside
+    The dry-run's record (``rec``, or ``launch.dryrun.run_cell``: meta
+    DTensors in a fake group, nothing allocated), then inside
     ``launch.mesh.traced_group(mesh, device)`` rank 0's shards of the cell's
     arguments at full size and one step of the cell's body on them
     (``launch.specs.plan_cell``): the fake group completes every collective
@@ -2676,9 +2721,11 @@ def dryrun_sharded_path(device, arch: str, shape_name: str, mesh_name: str, *, c
     ``torch.cuda.max_memory_allocated`` over the cell's own allocations, a
     second step's time by CUDA events, every kernel's launches in the first
     step (``step_launches``) and in both (``launches``), and the local
-    shapes the flash kernel was launched at."""
+    shapes the flash and SSD kernels were launched at (``calls``,
+    ``ssd_calls``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.launch import dryrun, shapes, specs
     from repro_torch.launch.mesh import get_mesh, traced_group
 
@@ -2687,15 +2734,20 @@ def dryrun_sharded_path(device, arch: str, shape_name: str, mesh_name: str, *, c
     cfg = cfg or get_config(arch)
     shape = shape or shapes.SHAPES[shape_name]
     mesh = get_mesh(mesh_name)
-    rec = dryrun.run_cell(arch, shape_name, mesh_name, cfg=cfg, shape=shape)
+    rec = rec or dryrun.run_cell(arch, shape_name, mesh_name, cfg=cfg, shape=shape)
     if rec["status"] != "ok":
         raise AssertionError(f"dry-run {arch}/{shape_name}/{mesh_name}: {rec['status']} "
                              f"{rec.get('error', rec.get('reason', ''))}")
-    calls, launch, kernels = [], fa._launch, _kernels()
+    calls, ssd_calls, kernels = [], [], _kernels()
+    launch, ssd_launch = fa._launch, ssd_kernel._launch
 
     def recording(q, k, *rest):
         calls.append((tuple(q.shape), tuple(k.shape), q.dtype, *rest[1:4]))
         return launch(q, k, *rest)
+
+    def recording_ssd(x, dt, A, B, C, D, chunk, return_state):
+        ssd_calls.append((tuple(x.shape), tuple(B.shape), x.dtype, chunk))
+        return ssd_launch(x, dt, A, B, C, D, chunk, return_state)
 
     out = {"record": rec}
     rules = specs.cell_rules(shape, mesh)
@@ -2710,16 +2762,16 @@ def dryrun_sharded_path(device, arch: str, shape_name: str, mesh_name: str, *, c
             torch.cuda.reset_peak_memory_stats()
         for fn in kernels.values():
             fn.launches = 0
-        fa._launch = recording
+        fa._launch, ssd_kernel._launch = recording, recording_ssd
         try:
             result = plan.step(*plan.args)
             if cuda:
                 torch.cuda.synchronize()
                 out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
         finally:
-            fa._launch = launch
+            fa._launch, ssd_kernel._launch = launch, ssd_launch
         out["step_launches"] = {name: fn.launches for name, fn in kernels.items()}
-        out["calls"] = calls
+        out["calls"], out["ssd_calls"] = calls, ssd_calls
         del result
         if cuda:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2747,17 +2799,49 @@ def sharded_attention_calls(cfg, shape, microbatches: int) -> int:
     return per_forward * adjust.forward_calls_per_layer(cfg, shape, microbatches)
 
 
-def phase_dryrun_check_sharded(device, card: str) -> dict:
+def sharded_ssd_calls(cfg, shape, microbatches: int) -> int:
+    """SSD kernel launches of one step of a cell: one a layer of an SSM or
+    hybrid model times each layer's forward calls; none in a decode (the
+    one-token update is plain)."""
+    from repro_torch.launch import adjust
+
+    if shape.kind == "decode" or cfg.family not in ("ssm", "hybrid"):
+        return 0
+    return cfg.n_layers * adjust.forward_calls_per_layer(cfg, shape, microbatches)
+
+
+def ssd_case(x_shape: tuple, bc_shape: tuple) -> tuple:
+    """(b, s, h, p, n, g), the kernels phase's SSD case, of a launch's x
+    (B,S,H,P) and B (B,S,G,N)."""
+    return (*x_shape, bc_shape[3], bc_shape[2])
+
+
+def _plain_rows(b: int, h: int, sk: int, budget: float = 2e9) -> int:
+    """Query rows a block of the plain attention takes: at most 1024, fewer
+    where their float32 scores would pass ``budget`` bytes (hymba's 25
+    heads against 32768 keys: 256)."""
+    rows = 1024
+    while rows > 64 and b * h * rows * sk * 4 > budget:
+        rows //= 2
+    return rows
+
+
+def phase_dryrun_check_sharded(device, card: str, records: "Background") -> dict:
     """:func:`dryrun_sharded_path` for each cell of ``DRYRUN_SHARDED`` on
-    ``DRYRUN_SHARDED_MESH``, one cell's weights at a time: the measured peak
-    must be within ``DRYRUN_MEMORY_RTOL`` of the sharded record's
-    ``per_device_bytes``; where the cell runs flash attention its launches
-    must equal the step's attention calls, and the kernel must agree with
-    its plain version at every local shape it was launched at (seeded
-    inputs, the kernels phase's tolerances).  The step's time by events is
-    printed beside ``step_time_bound_s``, with no gate."""
+    ``DRYRUN_SHARDED_MESH``, one cell's weights at a time, each on the
+    record that ``records`` (the background dry-run) wrote for it: the
+    measured peak must be within
+    ``DRYRUN_MEMORY_RTOL`` of the sharded record's ``per_device_bytes``;
+    the record must count no SSD call at a shape without a kernel; where
+    the cell runs flash attention or the SSD scan, each kernel's launches
+    must equal the step's calls of it, and the kernel must agree with its
+    plain version at every local shape it was launched at (seeded inputs,
+    the kernels phase's tolerances).  The step's time by events is printed
+    beside ``step_time_bound_s``, with no gate."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import shapes
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.launch import dryrun, shapes
 
     kernel, ref = _import_port()
     t0 = time.perf_counter()
@@ -2765,7 +2849,12 @@ def phase_dryrun_check_sharded(device, card: str) -> dict:
     for arch, shape_name in DRYRUN_SHARDED:
         _release()
         t1 = time.perf_counter()
-        r = dryrun_sharded_path(device, arch, shape_name, DRYRUN_SHARDED_MESH)
+        path = dryrun.cell_path(records.dir / "dryrun", arch, shape_name, DRYRUN_SHARDED_MESH)
+        waited = records.wait_for(path, "dryrun-check-sharded")
+        print(f"dryrun-check-sharded: {arch}/{shape_name}: the background dry-run's record "
+              f"(waited {waited:.1f} s)")
+        r = dryrun_sharded_path(device, arch, shape_name, DRYRUN_SHARDED_MESH,
+                                rec=json.loads(path.read_text()))
         rec, cfg, shape = r["record"], get_config(arch), shapes.SHAPES[shape_name]
         pred, got = rec["per_device_bytes"], r["peak_bytes"]
         bound_ms = 1e3 * rec["step_time_bound_s"]
@@ -2785,7 +2874,9 @@ def phase_dryrun_check_sharded(device, card: str) -> dict:
               f"({got / pred - 1:+.2%} on the dry-run), eager step {r['step_ms']:.4f} ms by "
               f"events ({r['step_ms'] / bound_ms:.3f} x its bound), launches of the two steps "
               f"{r['launches']}, flash_attention at "
-              f"{sorted(set(c[:2] for c in r['calls']))} ({card})")
+              f"{sorted(set(c[:2] for c in r['calls']))}, ssd at "
+              f"{sorted(set(c[:2] for c in r['ssd_calls']))}; the record's kernel routes "
+              f"{rec['counters']['kernels']} ({card})")
         if abs(got - pred) > DRYRUN_MEMORY_RTOL * pred:
             raise AssertionError(f"{arch}/{shape_name}: measured peak {got} bytes is not within "
                                  f"{DRYRUN_MEMORY_RTOL:.0%} of the sharded dry-run's {pred:.0f}")
@@ -2795,13 +2886,22 @@ def phase_dryrun_check_sharded(device, card: str) -> dict:
             raise AssertionError(f"{arch}/{shape_name}: {first} flash_attention launches in the "
                                  f"first step and {both} in two, the step has {want} attention "
                                  f"calls")
+        want = sharded_ssd_calls(cfg, shape, rec["microbatches"])
+        first, both = r["step_launches"]["ssd"], r["launches"]["ssd"]
+        if first != want or both != 2 * want:
+            raise AssertionError(f"{arch}/{shape_name}: {first} ssd launches in the first step "
+                                 f"and {both} in two, the step has {want} SSD calls")
+        if rec["counters"]["kernels"]["ssd"]["no_kernel"] != 0:
+            raise AssertionError(f"{arch}/{shape_name}: the record counts SSD calls at a shape "
+                                 f"no kernel is built for: {rec['counters']['kernels']['ssd']}")
         worst = 0.0
         for i, (qs, ks, dtype, causal, window, q_offset) in enumerate(sorted(set(r["calls"]))):
             b, sq, h, d = qs
             q, k, v = _qkv((b, sq, ks[1], h, ks[2], d), dtype, device, seed=4000 + i)
             got_o = kernel.flash_attention(q, k, v, causal=causal, window=window,
                                            q_offset=q_offset)
-            want_o = _plain_attention(ref, q, k, v, window, q_offset, causal, rows=1024)
+            want_o = _plain_attention(ref, q, k, v, window, q_offset, causal,
+                                      rows=_plain_rows(b, h, ks[1]))
             torch.cuda.synchronize()
             err = (got_o.float() - want_o.float()).abs()
             tol = TOL[dtype]
@@ -2814,10 +2914,23 @@ def phase_dryrun_check_sharded(device, card: str) -> dict:
         if r["calls"]:
             print(f"dryrun-check-sharded: {arch}: flash_attention at the local shapes vs "
                   f"naive_attention, max abs err {worst:.3g} (tol {TOL[r['calls'][0][2]]:.3g} "
-                  f"abs + rel); phase wall for the cell {time.perf_counter() - t1:.1f} s")
+                  f"abs + rel)")
+        ssd_worst = {"y": 0.0, "state": 0.0}
+        for i, (xs, bs, dtype, chunk) in enumerate(sorted(set(r["ssd_calls"]))):
+            ey, es = _ssd_against_plain(ssd_kernel, ssd_ref, ssd_case(xs, bs), dtype, chunk,
+                                        device, seed=4100 + i)
+            ssd_worst = {"y": max(ssd_worst["y"], ey), "state": max(ssd_worst["state"], es)}
+        if r["ssd_calls"]:
+            print(f"dryrun-check-sharded: {arch}: ssd at the local shapes "
+                  f"{sorted(set(r['ssd_calls']))} vs ssd_chunked, max abs err y "
+                  f"{ssd_worst['y']:.3g}, state {ssd_worst['state']:.3g} (tol "
+                  f"{TOL[r['ssd_calls'][0][2]] * SSD_HEADROOM:.3g} and {SSD_STATE_TOL} abs + rel)")
+        print(f"dryrun-check-sharded: {arch}: phase wall for the cell "
+              f"{time.perf_counter() - t1:.1f} s")
         out[f"{arch}/{shape_name}"] = {"per_device_bytes": pred, "peak_bytes": got,
                                        "step_ms": r["step_ms"], "bound_ms": bound_ms,
-                                       "launches": r["launches"], "max_abs_err": worst}
+                                       "launches": r["launches"], "max_abs_err": worst,
+                                       "ssd_max_abs_err": ssd_worst}
     _release()
     refuses_a_shard_without_a_kernel(device)
     print(f"dryrun-check-sharded: phase wall {time.perf_counter() - t0:.1f} s")
@@ -2826,8 +2939,8 @@ def phase_dryrun_check_sharded(device, card: str) -> dict:
 
 def refuses_a_shard_without_a_kernel(device) -> None:
     """The dispatchers take no plain version on the card: a local shape no
-    kernel is built for (hymba's SSD head-dim shard of 64/16 = 4 on
-    ``single``; an attention head dim of 8) raises before any launch, where
+    kernel is built for (an SSD head dim of 4, which no config's shard
+    yields; an attention head dim of 8) raises before any launch, where
     the dry-run's ``meta`` trace runs it plain and counts it as
     ``no_kernel``."""
     from repro_torch.kernels.flash_attention import ops as attn_ops
@@ -2917,7 +3030,9 @@ def start_dryrun() -> Background:
            f"repro_torch.launch.perf --arch {arch} --shape {shape} --mesh one --patience "
            f"{patience} --out {out} --store {store} --log {workdir / 'perf.json'} && "
            f"{wall('sweep and hillclimb')}")
-    return Background(["sh", "-c", cmd], workdir, timeout=1100.0,
+    # at a lower priority than the phases: it has slack until it is read,
+    # the host-bound phases beside it have none
+    return Background(["nice", "-n", "10", "sh", "-c", cmd], workdir, timeout=1100.0,
                       env={"CUDA_VISIBLE_DEVICES": ""})
 
 
@@ -4708,7 +4823,7 @@ def main() -> int:
     # the fault twin's small children (beside dryrun-check's 77.3 GB cell they
     # might not fit) from here on: it takes as long as every phase after it
     fault = start_fault()
-    sharded = phase_dryrun_check_sharded(device, card)
+    sharded = phase_dryrun_check_sharded(device, card, dryrun)
     path_launches["dryrun-check-sharded"] = {
         name: sum(c["launches"][name] for c in sharded.values()) for name in _kernels()}
     _memory("dryrun-check-sharded", t_start)

@@ -47,13 +47,18 @@
 // At Q 64, N 128, PS 32 the block takes 116 KB of dynamic shared memory,
 // at Q 32 61 KB.  The result does not depend on the chunk beyond f32
 // summation order.  Compiled: chunk 32 and 64, N 16 (hymba-1.5b) and 128
-// (mamba2-780m), PS 32 and 16 (head dims that are multiples of 32, and of
-// 16 only), f32.
+// (mamba2-780m), PS 32, 16 and 8 (head dims that are multiples of 32, of 16
+// only, and 8: hymba-1.5b's head-dim shard on a model axis of 16), f32.
 //
-// Thread layout: 256 threads = 16 row groups (ty) x 16 lanes (tx).
-//   scores: rows ty*Q/16 .. +Q/16-1, columns tx + 16c  (Q/16 x Q/16 each)
-//   y:      rows ty*Q/16 .. +Q/16-1, columns tx + 16c  (Q/16 x PS/16 each)
-//   state:  rows ty*PS/16 .. +PS/16-1, columns tx + 16c (PS/16 x N/16 each)
+// Thread layout: 256 threads; kYc = min(PS, 16) and kSr = min(PS, 16).
+//   scores: 16 row groups (ty) x 16 lanes (tx): rows ty*Q/16 .. +Q/16-1,
+//           columns tx + 16c (Q/16 x Q/16 each)
+//   y:      256/kYc row groups (yr) x kYc lanes (yc): rows yr*kRy .. +kRy-1,
+//           columns yc + kYc c (kRy = Q kYc/256 rows x PS/kYc columns each)
+//   state:  kSr row groups (sr) x min(N, 256/kSr) lanes (sc): rows
+//           sr*PS/kSr .., columns sc + lanes c; at PS 8 and N 16 only 128
+//           threads hold a state element
+// At PS 16 and 32 the y and state layouts are the scores' (16 x 16).
 // Shared rows of B, C, the state and the scores have odd strides (N+1, Q+1)
 // so the 16 lanes that read 16 different rows hit 16 different banks.
 //
@@ -72,9 +77,14 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 template <int Q, int N, int PS>
 struct Layout {
-  static constexpr int kRq = Q / 16;   // score and y rows (and score columns) per thread
-  static constexpr int kPc = PS / 16;  // y columns and state rows per thread
-  static constexpr int kNc = N / 16;   // state columns per thread
+  static constexpr int kRq = Q / 16;   // score rows and columns per thread
+  static constexpr int kYc = PS < 16 ? PS : 16;            // y: lanes on the columns
+  static constexpr int kRy = Q * kYc / kThreads;           // ... y rows per thread
+  static constexpr int kPc = PS / kYc;                     // ... y columns per thread
+  static constexpr int kSr = PS < 16 ? PS : 16;            // state: row groups
+  static constexpr int kSx = N < kThreads / kSr ? N : kThreads / kSr;   // ... lanes
+  static constexpr int kSp = PS / kSr;                     // ... state rows per thread
+  static constexpr int kNc = N / kSx;                      // ... state columns per thread
   static constexpr int kLdN = N + 1;   // row stride of B, C and the state
   static constexpr int kLdQ = Q + 1;   // row stride of the scores
   // B, C (Q x kLdN), scores (Q x kLdQ), x and dt*x (Q x PS), state (PS x
@@ -83,7 +93,7 @@ struct Layout {
       2 * (size_t)Q * kLdN + (size_t)Q * kLdQ + 2 * (size_t)Q * PS + (size_t)PS * kLdN + 3 * Q;
   static constexpr size_t kSmem = kFloats * sizeof(float);
   static_assert(Q == 32 || Q == 64, "chunk");
-  static_assert(N % 16 == 0 && PS % 16 == 0, "N and PS are multiples of 16");
+  static_assert(N % 16 == 0 && (PS % 16 == 0 || PS == 8), "N a multiple of 16, PS of 16 or 8");
 };
 
 template <typename T, int Q, int N, int PS>
@@ -107,6 +117,9 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
+  const int yc = tid % L::kYc, yr = tid / L::kYc;    // y's layout
+  const int sc = tid % L::kSx, sr = tid / L::kSx;    // the state's (sr >= kSr: idle)
+  const bool holds_state = sr < L::kSr;
   const int p0 = blockIdx.x * PS;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -201,44 +214,44 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
     // ---- y = scores . (dt x) + exp(cs) (C . state) + D x, stored in T
     {
-      float yi[L::kRq][L::kPc], ye[L::kRq][L::kPc];
+      float yi[L::kRy][L::kPc], ye[L::kRy][L::kPc];
 #pragma unroll
-      for (int r = 0; r < L::kRq; ++r)
+      for (int r = 0; r < L::kRy; ++r)
 #pragma unroll
         for (int c = 0; c < L::kPc; ++c) yi[r][c] = ye[r][c] = 0.f;
-      const int j_end = ty * L::kRq + L::kRq;  // scores are 0 past this thread's last row
+      const int j_end = yr * L::kRy + L::kRy;  // scores are 0 past this thread's last row
       for (int j = 0; j < j_end; ++j) {
-        float sv[L::kRq], xv[L::kPc];
+        float sv[L::kRy], xv[L::kPc];
 #pragma unroll
-        for (int r = 0; r < L::kRq; ++r) sv[r] = ss[(ty * L::kRq + r) * L::kLdQ + j];
+        for (int r = 0; r < L::kRy; ++r) sv[r] = ss[(yr * L::kRy + r) * L::kLdQ + j];
 #pragma unroll
-        for (int c = 0; c < L::kPc; ++c) xv[c] = dtx[j * PS + tx + 16 * c];
+        for (int c = 0; c < L::kPc; ++c) xv[c] = dtx[j * PS + yc + L::kYc * c];
 #pragma unroll
-        for (int r = 0; r < L::kRq; ++r)
+        for (int r = 0; r < L::kRy; ++r)
 #pragma unroll
           for (int c = 0; c < L::kPc; ++c) yi[r][c] = fmaf(sv[r], xv[c], yi[r][c]);
       }
 #pragma unroll 4
       for (int n = 0; n < N; ++n) {
-        float cv[L::kRq], sv[L::kPc];
+        float cv[L::kRy], sv[L::kPc];
 #pragma unroll
-        for (int r = 0; r < L::kRq; ++r) cv[r] = cs_mat[(ty * L::kRq + r) * L::kLdN + n];
+        for (int r = 0; r < L::kRy; ++r) cv[r] = cs_mat[(yr * L::kRy + r) * L::kLdN + n];
 #pragma unroll
-        for (int c = 0; c < L::kPc; ++c) sv[c] = st[(tx + 16 * c) * L::kLdN + n];
+        for (int c = 0; c < L::kPc; ++c) sv[c] = st[(yc + L::kYc * c) * L::kLdN + n];
 #pragma unroll
-        for (int r = 0; r < L::kRq; ++r)
+        for (int r = 0; r < L::kRy; ++r)
 #pragma unroll
           for (int c = 0; c < L::kPc; ++c) ye[r][c] = fmaf(cv[r], sv[c], ye[r][c]);
       }
       T* yg = y + step0 * x_row + (size_t)h * head_dim + p0;
 #pragma unroll
-      for (int r = 0; r < L::kRq; ++r) {
-        const int i = ty * L::kRq + r;
+      for (int r = 0; r < L::kRy; ++r) {
+        const int i = yr * L::kRy + r;
         if (i >= rows) continue;
         const float decay_in = expf(cum[i]);
 #pragma unroll
         for (int c = 0; c < L::kPc; ++c) {
-          const int p = tx + 16 * c;
+          const int p = yc + L::kYc * c;
           const float out = yi[r][c] + decay_in * ye[r][c] + d_skip * xs[i * PS + p];
           store(yg + (size_t)i * x_row + p, out);
         }
@@ -247,31 +260,31 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();  // every reader of the old state is done
 
     // ---- state = exp(cs_last) state + sum_j exp(cs_last - cs_j) (dt_j x_j) (x) B_j
-    {
+    if (holds_state) {
       const float decay = expf(total);
-      float acc[L::kPc][L::kNc];
+      float acc[L::kSp][L::kNc];
 #pragma unroll
-      for (int r = 0; r < L::kPc; ++r)
+      for (int r = 0; r < L::kSp; ++r)
 #pragma unroll
         for (int c = 0; c < L::kNc; ++c)
-          acc[r][c] = st[(ty * L::kPc + r) * L::kLdN + tx + 16 * c] * decay;
+          acc[r][c] = st[(sr * L::kSp + r) * L::kLdN + sc + L::kSx * c] * decay;
       for (int j = 0; j < rows; ++j) {
         const float w = wts[j];
-        float xv[L::kPc], bv[L::kNc];
+        float xv[L::kSp], bv[L::kNc];
 #pragma unroll
-        for (int r = 0; r < L::kPc; ++r) xv[r] = dtx[j * PS + ty * L::kPc + r] * w;
+        for (int r = 0; r < L::kSp; ++r) xv[r] = dtx[j * PS + sr * L::kSp + r] * w;
 #pragma unroll
-        for (int c = 0; c < L::kNc; ++c) bv[c] = bs[j * L::kLdN + tx + 16 * c];
+        for (int c = 0; c < L::kNc; ++c) bv[c] = bs[j * L::kLdN + sc + L::kSx * c];
 #pragma unroll
-        for (int r = 0; r < L::kPc; ++r)
+        for (int r = 0; r < L::kSp; ++r)
 #pragma unroll
           for (int c = 0; c < L::kNc; ++c) acc[r][c] = fmaf(xv[r], bv[c], acc[r][c]);
       }
 #pragma unroll
-      for (int r = 0; r < L::kPc; ++r)
+      for (int r = 0; r < L::kSp; ++r)
 #pragma unroll
         for (int c = 0; c < L::kNc; ++c)
-          st[(ty * L::kPc + r) * L::kLdN + tx + 16 * c] = acc[r][c];
+          st[(sr * L::kSp + r) * L::kLdN + sc + L::kSx * c] = acc[r][c];
     }
   }
 
@@ -323,6 +336,10 @@ cudaError_t dispatch(int chunk, int p_slice, int n, const void* x, const float* 
     return dispatch_n<T, 32, 32>(n, x, dt, A, Bm, Cm, D, y, state, batch, seq, n_heads, head_dim, n_groups, s);
   if (chunk == 32 && p_slice == 16)
     return dispatch_n<T, 32, 16>(n, x, dt, A, Bm, Cm, D, y, state, batch, seq, n_heads, head_dim, n_groups, s);
+  if (chunk == 64 && p_slice == 8)
+    return dispatch_n<T, 64, 8>(n, x, dt, A, Bm, Cm, D, y, state, batch, seq, n_heads, head_dim, n_groups, s);
+  if (chunk == 32 && p_slice == 8)
+    return dispatch_n<T, 32, 8>(n, x, dt, A, Bm, Cm, D, y, state, batch, seq, n_heads, head_dim, n_groups, s);
   return cudaErrorInvalidValue;
 }
 

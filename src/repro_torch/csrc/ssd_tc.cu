@@ -31,7 +31,9 @@
 //      the chunk's B (shared by its heads) and each head's x with cp.async,
 //      takes each head's cumsum in one warp, and computes the chunk's local
 //      state S_c[p][n] = sum_j (x_j[p] w_j) B_j[n], w_j = exp(cs_last -
-//      cs_j) dt_j, as mma.sync m16n8k16 tiles (bf16 in, f32 sum).  The
+//      cs_j) dt_j, as mma.sync m16n8k16 tiles (bf16 in, f32 sum), P on the
+//      m16 side: a head dim of 8 is staged as 16 rows whose last 8 are
+//      zeros (cp.async's zero fill), and only its 8 rows are stored.  The
 //      scaled operand x w is f32: it is split into a bf16 high part and a
 //      bf16 low part (the rest) and both are multiplied, so the state is
 //      good to ~2^-16 of each term; one rounding of it to bf16 would put
@@ -54,7 +56,9 @@
 //      the A-fragment layout (as attention's P), then y = exp(cs_i) (C .
 //      in_c^T) + M . x + D x, rounded once and stored.  The products run
 //      over whole tiles (M is 0 above the diagonal, where the exponent is
-//      -inf) and the head dim is a template parameter: loops with
+//      -inf) and the head dim is a template parameter (P is the n side of
+//      both products: blocks of 16 columns, two n8 tiles, or at P 8 one
+//      block of one n8 tile): loops with
 //      compile-time bounds and no per-warp branches, which the compiler
 //      software-pipelines (ldmatrix ahead of mma).
 //         reads x, B, C, in_c (19.5 MB), writes y (6.3 MB).
@@ -75,7 +79,14 @@
 // (g+8, 2t..).
 //
 // Compiled: chunk Q 32 and 64, state N 16 (hymba-1.5b) and 128 (mamba2-780m),
-// head dim P 16, 32, 64 and 128 (pass 3; pass 1 loops over P at run time).
+// head dim P 8, 16, 32, 64 and 128 (pass 3; pass 1 loops over P at run time).
+// P 8 is hymba-1.5b's head-dim shard on a model axis of 16 (its 25 SSM heads
+// do not divide 16, so the sharding rules split its head dim of 128): at
+// (B 2, S 32768, H 25, P 8, N 16) the function moves x and y (26.2 MB
+// each), dt (6.6 MB), B and C (2.1 MB each) and the final state: 63.2 MB,
+// 18.9 us at 3.35 TB/s; the passes add their scratch: 13.1 MB of f32 chunk
+// states (written by pass 1, read by pass 2) and 6.6 MB of bf16 entering
+// states (written by pass 2, read by pass 3).
 //
 // Entry point: repro_ssd_tc_fwd (plain C, called through ctypes); it
 // launches the three passes on the caller's stream and returns the first
@@ -132,6 +143,19 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// two 8x8 matrices into r[0], r[1] (lanes 0-15 give the rows)
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p))
                : "memory");
 }
@@ -211,14 +235,21 @@ struct HeadBlock {
   }
 };
 
+// Head-dim rows of pass 1: P rounded up to the m16 tile.
+__host__ __device__ constexpr int rows16(int p) { return (p + 15) / 16 * 16; }
+// Row stride of x in pass 3: padded by 16 bytes, but at P 8 a row is 16
+// bytes and 8 unpadded rows already hit 8 distinct bank groups.
+__host__ __device__ constexpr int ld_x(int p) { return p == 8 ? p : p + kPad; }
+
 template <int Q, int N>
 struct Smem {
   static constexpr int kLdN = N + kPad;
   static size_t states(int p, int heads) {  // pass 1: B, each head's x, weights and cs
-    return 2 * ((size_t)Q * kLdN + (size_t)heads * Q * (p + kPad)) + 2 * 4 * kMaxHeadBlock * Q;
+    return 2 * ((size_t)Q * kLdN + (size_t)heads * Q * (rows16(p) + kPad)) +
+           2 * 4 * kMaxHeadBlock * Q;
   }
   static size_t scan(int p) {    // pass 3: C, B, two heads' x and in_c, dt and cs of each head
-    return 2 * (2 * (size_t)Q * kLdN + 2 * (size_t)Q * (p + kPad) + 2 * (size_t)p * kLdN) +
+    return 2 * (2 * (size_t)Q * kLdN + 2 * (size_t)Q * ld_x(p) + 2 * (size_t)p * kLdN) +
            2 * 4 * kMaxHeadBlock * Q;
   }
   static_assert(Q == 32 || Q == 64, "chunk");
@@ -233,7 +264,7 @@ ssd_tc_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                      float* __restrict__ states, float* __restrict__ decay, Shape s) {
   constexpr int kLdN = Smem<Q, N>::kLdN;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int P = s.head_dim, ldp = P + kPad;
+  const int P = s.head_dim, P16 = rows16(P), ldp = P16 + kPad;
   bf16* bs = reinterpret_cast<bf16*>(smem);       // B      [Q][kLdN]
   bf16* xs = bs + Q * kLdN;                        // x      [head_block][Q][ldp]
   float* wts = reinterpret_cast<float*>(xs + s.head_block * Q * ldp);  // weights [4][Q]
@@ -251,12 +282,14 @@ ssd_tc_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     cp_async16(bs + i * kLdN + c * 8, bg + (size_t)(i < rows ? i : 0) * s.n_groups * N + c * 8,
                i < rows);
   }
-  const int pc = P / 8;
-  for (int e = tid; e < hb.n * Q * pc; e += kThreads) {
-    const int hl = e / (Q * pc), i = e / pc % Q, c = e % pc;
+  // columns P..P16-1 (only at P 8) load as zeros: they add nothing to the tile
+  const int pc = P / 8, pc16 = P16 / 8;
+  for (int e = tid; e < hb.n * Q * pc16; e += kThreads) {
+    const int hl = e / (Q * pc16), i = e / pc16 % Q, c = e % pc16;
     cp_async16(xs + (hl * Q + i) * ldp + c * 8,
-               x + (step0 + (i < rows ? i : 0)) * s.n_heads * P + (size_t)(hb.h0 + hl) * P + c * 8,
-               i < rows);
+               x + (step0 + (i < rows ? i : 0)) * s.n_heads * P + (size_t)(hb.h0 + hl) * P +
+                   (c < pc ? c : 0) * 8,
+               i < rows && c < pc);
   }
   cp_async_commit();
 
@@ -281,7 +314,7 @@ ssd_tc_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   // units of (head, 16 rows of P) over the warps; each a 16 x N f32 tile
   const int gq = lane >> 2, tq = lane & 3;   // fragment row group and column pair
   const int mi = lane >> 3, r8 = lane & 7;   // ldmatrix: this lane's matrix and its row
-  const int m_tiles = P / 16;
+  const int m_tiles = P16 / 16;
   for (int u = warp; u < hb.n * m_tiles; u += kWarps) {
     const int hl = u / m_tiles, m0 = (u % m_tiles) * 16;
     const bf16* xh = xs + hl * Q * ldp;
@@ -312,11 +345,13 @@ ssd_tc_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       }
     }
     float* sg = states + ((((size_t)b * s.n_chunks + chunk) * s.n_heads + hb.h0 + hl) * P + m0) * N;
+    const bool upper = m0 + gq + 8 < P;    // rows 8-15 of the tile: none at P 8
 #pragma unroll
     for (int nt = 0; nt < N / 8; ++nt) {
       *reinterpret_cast<float2*>(sg + gq * N + nt * 8 + 2 * tq) = make_float2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<float2*>(sg + (gq + 8) * N + nt * 8 + 2 * tq) =
-          make_float2(acc[nt][2], acc[nt][3]);
+      if (upper)
+        *reinterpret_cast<float2*>(sg + (gq + 8) * N + nt * 8 + 2 * tq) =
+            make_float2(acc[nt][2], acc[nt][3]);
     }
   }
 }
@@ -350,11 +385,15 @@ ssd_tc_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ A, const bf16* __restrict__ Bm,
                    const bf16* __restrict__ Cm, const float* __restrict__ D,
                    const bf16* __restrict__ ins, bf16* __restrict__ y, Shape s) {
+  static_assert(P == 8 || P % 16 == 0, "head dim");
   constexpr int kLdN = Smem<Q, N>::kLdN;
-  constexpr int kLdP = P + kPad;
+  constexpr int kLdP = ld_x(P);
   constexpr int kIT = Q / 16;                 // 16-row tiles of the chunk
   constexpr int kWpt = kWarps / kIT;          // warps a row tile (1 at Q 64, 2 at Q 32)
-  constexpr int kPB = (P / 16 + kWpt - 1) / kWpt;   // 16-column blocks of P a warp takes
+  constexpr int kCW = P < 16 ? P : 16;        // columns of P a column block: 16, or 8 at P 8
+  constexpr int kNB = kCW / 8;                // its n8 tiles
+  constexpr int kCB = P / kCW;                // column blocks of P
+  constexpr int kPB = (kCB + kWpt - 1) / kWpt;   // column blocks a warp takes
   constexpr int kGroup = kPB < 4 ? kPB : 4;   // ... this many at once
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* cs_m = reinterpret_cast<bf16*>(smem);     // C       [Q][kLdN]
@@ -412,7 +451,7 @@ ssd_tc_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int it = warp % kIT, i0 = it * 16;
   const int ra = i0 + gq, rb = ra + 8;      // this thread's two rows of the chunk
   const int pb0 = warp / kIT;               // its column blocks: pb0 + kWpt k
-  const bool active = pb0 < P / 16;         // false only where P / 16 < kWpt
+  const bool active = pb0 < kCB;            // false only where kCB < kWpt
 
   // C fragments of rows i0..i0+15 (A of the C . in_c^T product), for every head
   uint32_t cf[N / 16][4];
@@ -474,29 +513,32 @@ ssd_tc_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     if (active) {
 #pragma unroll
       for (int g0 = 0; g0 < kPB; g0 += kGroup) {
-        float acc[kGroup][2][4];
+        float acc[kGroup][kNB][4];
 #pragma unroll
         for (int g = 0; g < kGroup; ++g)
 #pragma unroll
-          for (int n = 0; n < 2; ++n) acc[g][n][0] = acc[g][n][1] = acc[g][n][2] = acc[g][n][3] = 0.f;
+          for (int n = 0; n < kNB; ++n) acc[g][n][0] = acc[g][n][1] = acc[g][n][2] = acc[g][n][3] = 0.f;
         // exp(cs_i) C . in_c^T
 #pragma unroll
         for (int ks = 0; ks < N / 16; ++ks) {
-          uint32_t bf[kGroup][4];  // in_c[p][n] for p-tiles p0, p0+8
-#pragma unroll
-          for (int g = 0; g < kGroup; ++g)
-            ldsm_x4(bf[g], sh + ((pb0 + (g0 + g) * kWpt) * 16 + (mi >> 1) * 8 + r8) * kLdN +
-                               ks * 16 + (mi & 1) * 8);
+          uint32_t bf[kGroup][4];  // in_c[p][n] for p-tiles p0 (and p0+8)
 #pragma unroll
           for (int g = 0; g < kGroup; ++g) {
-            mma(acc[g][0], cf[ks], bf[g][0], bf[g][1]);
-            mma(acc[g][1], cf[ks], bf[g][2], bf[g][3]);
+            const bf16* sp = sh + (pb0 + (g0 + g) * kWpt) * kCW * kLdN + ks * 16 + (mi & 1) * 8;
+            if constexpr (kNB == 2)
+              ldsm_x4(bf[g], sp + ((mi >> 1) * 8 + r8) * kLdN);
+            else
+              ldsm_x2(bf[g], sp + r8 * kLdN);
           }
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g)
+#pragma unroll
+            for (int n = 0; n < kNB; ++n) mma(acc[g][n], cf[ks], bf[g][2 * n], bf[g][2 * n + 1]);
         }
 #pragma unroll
         for (int g = 0; g < kGroup; ++g)
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
+          for (int n = 0; n < kNB; ++n) {
             acc[g][n][0] *= dec_a;
             acc[g][n][1] *= dec_a;
             acc[g][n][2] *= dec_b;
@@ -505,23 +547,26 @@ ssd_tc_scan_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         // + M . x
 #pragma unroll
         for (int kb = 0; kb < kIT; ++kb) {
-          uint32_t bf[kGroup][4];  // x[j][p] for p-tiles p0, p0+8
-#pragma unroll
-          for (int g = 0; g < kGroup; ++g)
-            ldsm_x4_t(bf[g], xh + (kb * 16 + (mi & 1) * 8 + r8) * kLdP +
-                                 (pb0 + (g0 + g) * kWpt) * 16 + (mi >> 1) * 8);
+          uint32_t bf[kGroup][4];  // x[j][p] for p-tiles p0 (and p0+8)
 #pragma unroll
           for (int g = 0; g < kGroup; ++g) {
-            mma(acc[g][0], mf[kb], bf[g][0], bf[g][1]);
-            mma(acc[g][1], mf[kb], bf[g][2], bf[g][3]);
+            const bf16* xp = xh + (kb * 16 + (mi & 1) * 8 + r8) * kLdP + (pb0 + (g0 + g) * kWpt) * kCW;
+            if constexpr (kNB == 2)
+              ldsm_x4_t(bf[g], xp + (mi >> 1) * 8);
+            else
+              ldsm_x2_t(bf[g], xp);
           }
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g)
+#pragma unroll
+            for (int n = 0; n < kNB; ++n) mma(acc[g][n], mf[kb], bf[g][2 * n], bf[g][2 * n + 1]);
         }
         // + D x, one rounding, the rows inside the sequence
 #pragma unroll
         for (int g = 0; g < kGroup; ++g)
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const int p = (pb0 + (g0 + g) * kWpt) * 16 + n * 8 + 2 * tq;
+          for (int n = 0; n < kNB; ++n) {
+            const int p = (pb0 + (g0 + g) * kWpt) * kCW + n * 8 + 2 * tq;
             const float2 xa = unpack(*reinterpret_cast<const uint32_t*>(xh + ra * kLdP + p));
             const float2 xb = unpack(*reinterpret_cast<const uint32_t*>(xh + rb * kLdP + p));
             if (ra < rows)
@@ -590,6 +635,7 @@ cudaError_t launch(const bf16* x, const float* dt, const float* A, const bf16* B
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   switch (s.head_dim) {
+    case 8: return launch_scan<Q, N, 8>(blocks, x, dt, A, Bm, Cm, D, ins, y, s, stream);
     case 16: return launch_scan<Q, N, 16>(blocks, x, dt, A, Bm, Cm, D, ins, y, s, stream);
     case 32: return launch_scan<Q, N, 32>(blocks, x, dt, A, Bm, Cm, D, ins, y, s, stream);
     case 64: return launch_scan<Q, N, 64>(blocks, x, dt, A, Bm, Cm, D, ins, y, s, stream);
@@ -612,7 +658,7 @@ extern "C" int repro_ssd_tc_fwd(const void* x, const void* dt, const void* A, co
                                 void* stream) {
   if (dtype != 1 || batch <= 0 || seq <= 0 || n_heads <= 0 || n_groups <= 0 ||
       n_heads % n_groups != 0 ||
-      (head_dim != 16 && head_dim != 32 && head_dim != 64 && head_dim != 128))
+      (head_dim != 8 && head_dim != 16 && head_dim != 32 && head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
   Shape s{seq, n_heads, head_dim, n_groups, (seq + chunk - 1) / chunk, 1};
   // the largest head block that still gives every SM a block: C . B^T and

@@ -28,9 +28,14 @@ can show that its prefill (or train step) went through the kernels.
 Gradients.  The TPU kernel has no backward kernel (the reference
 differentiates its jnp path), so neither does this one.  A CUDA input that
 requires grad goes through :class:`SsdFn`: the forward is the kernel, and
-the backward recomputes :func:`ref.ssd_chunked` on the saved inputs with
-autograd and backpropagates through it — the gradient ``jax.grad`` gives
-over the reference's plain path.  An ``init_state`` that requires grad
+the backward recomputes :func:`ref.ssd_passes` (float32, the kernel's
+chunking) on the saved inputs with autograd and backpropagates through it —
+the gradient ``jax.grad`` gives over the reference's plain path, to float32
+rounding.  ``ref.ssd_passes`` takes every chunk at once where
+:func:`ref.ssd_chunked` loops over them, so a recompute dispatches a
+fraction of the ops (the host, not the card, bounds a train step's
+backward).
+An ``init_state`` that requires grad
 raises: the kernel takes none, and no path differentiates through one.
 """
 from __future__ import annotations
@@ -49,7 +54,9 @@ __all__ = ["ssd", "SsdFn", "CHUNKS", "STATE_DIMS", "SOURCES", "TC_HEAD_DIMS", "s
 CHUNKS = (32, 64)              # compiled chunk lengths
 STATE_DIMS = (16, 128)         # the state sizes of hymba-1.5b and mamba2-780m
 SOURCES = {torch.float32: "ssd", torch.bfloat16: "ssd_tc"}
-TC_HEAD_DIMS = (16, 32, 64, 128)   # the head dims ssd_tc's scan pass is compiled for
+# the head dims ssd_tc's scan pass is compiled for; 8 is hymba-1.5b's 128 split
+# over a model axis of 16 (its 25 SSM heads do not divide 16)
+TC_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # tensor arguments before the ints, per source: ssd_tc adds its three scratch buffers
 _POINTERS = {"ssd": 8, "ssd_tc": 11}
@@ -66,8 +73,17 @@ def _entry(source: str):
 
 
 def _p_slice(head_dim: int) -> int:
-    """Head-dim columns per CUDA block (the kernel's P split)."""
-    return 32 if head_dim % 32 == 0 else 16
+    """Head-dim columns per CUDA block of ``ssd`` (the kernel's P split:
+    compiled for 32, 16 and 8)."""
+    return 32 if head_dim % 32 == 0 else 16 if head_dim % 16 == 0 else 8
+
+
+def _head_dim_compiled(p: int, dtype: torch.dtype) -> bool:
+    """``ssd_tc`` takes the head dims of ``TC_HEAD_DIMS``; ``ssd`` the
+    multiples of 16 (slices of 32 or 16 columns) and 8 (one slice of 8)."""
+    if dtype == torch.bfloat16:
+        return p in TC_HEAD_DIMS
+    return p == 8 or (p > 0 and p % 16 == 0)
 
 
 def supports(x_shape: tuple, bc_shape: tuple, dtype: torch.dtype) -> bool:
@@ -75,8 +91,8 @@ def supports(x_shape: tuple, bc_shape: tuple, dtype: torch.dtype) -> bool:
     and C (B,S,G,N)): the dispatcher takes the plain version where not."""
     h, p = x_shape[2], x_shape[3]
     g, n = bc_shape[2], bc_shape[3]
-    return (dtype in SOURCES and n in STATE_DIMS and p > 0 and p % 16 == 0
-            and (dtype != torch.bfloat16 or p in TC_HEAD_DIMS) and g > 0 and h % g == 0)
+    return (dtype in SOURCES and n in STATE_DIMS and _head_dim_compiled(p, dtype)
+            and g > 0 and h % g == 0)
 
 
 def _check(x, dt, A, B, C, D, chunk: int) -> None:
@@ -106,10 +122,10 @@ def _check(x, dt, A, B, C, D, chunk: int) -> None:
         raise ValueError(f"B {tuple(B.shape)} does not fit x {tuple(x.shape)} (H % G must be 0)")
     if n not in STATE_DIMS:
         raise ValueError(f"state dim {n} not in {STATE_DIMS}")
-    if p == 0 or p % 16:
-        raise ValueError(f"head_dim {p} is not a multiple of 16")
-    if x.dtype == torch.bfloat16 and p not in TC_HEAD_DIMS:
-        raise ValueError(f"head_dim {p} not in {TC_HEAD_DIMS}: ssd_tc is not compiled for it")
+    if not _head_dim_compiled(p, x.dtype):
+        raise ValueError(f"head_dim {p}: " + (f"ssd_tc is compiled for {TC_HEAD_DIMS}"
+                                              if x.dtype == torch.bfloat16 else
+                                              "ssd is compiled for 8 and the multiples of 16"))
     if s == 0 or b == 0:
         raise ValueError("empty batch or sequence")
     if chunk not in CHUNKS:
@@ -168,8 +184,7 @@ class SsdFn(torch.autograd.Function):
         saved = ctx.saved_tensors
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(True) if t is not None else None for t in saved]
-            out = ref.ssd_chunked(*ins, chunk=ref.align_chunk(ctx.chunk, saved[0].shape[1]),
-                                  return_state=ctx.return_state)
+            out = ref.ssd_passes(*ins, chunk=ctx.chunk, return_state=ctx.return_state)
         outs = out if ctx.return_state else (out,)
         live = [t for t in ins if t is not None]
         got = iter(torch.autograd.grad(outs, live, grads, allow_unused=True))

@@ -130,7 +130,8 @@ def ssd_passes(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
     """SSD from a zero state through ``csrc/ssd_tc.cu``'s three passes.
 
     1. chunk states ``S_c = Σ_j (x_j w_j) ⊗ B_j``, ``w_j = exp(cs_last −
-       cs_j) dt_j``, with every chunk independent;
+       cs_j) dt_j``, with every chunk independent (P in tiles of 16 rows:
+       a head dim of 8 padded with zeros, its 8 rows kept);
     2. state passing: ``in_c = state; state = exp(cs_last) state + S_c``;
     3. chunk scan: ``y_i = Σ_{j≤i} M_ij x_j + exp(cs_i) C_i · in_c + D x_i``
        with ``M = C·Bᵀ ∘ exp(cs_i − cs_j) ∘ dt_j``.
@@ -155,14 +156,18 @@ def ssd_passes(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
     cs = torch.cumsum(dtf * A.float(), dim=2)             # inclusive, per chunk
     total = cs[:, :, -1]                                  # (b,c,h)
 
-    # 1. chunk states
+    # 1. chunk states; the kernel tiles P by 16 rows, so a head dim of 8 is
+    # padded with zero columns, and it keeps only the first P rows
     xw = xf * (torch.exp(total[:, :, None] - cs) * dtf)[..., None]
+    p16 = -(-p // 16) * 16
+    if p16 != p:
+        xw = torch.cat([xw, xw.new_zeros((*xw.shape[:-1], p16 - p))], dim=-1)
     if kernel_rounding:
         hi = _bf16(xw)
         parts = (hi, _bf16(xw - hi))
     else:
         parts = (xw,)
-    states = sum(torch.einsum("bcjhp,bcjhn->bchpn", part, Bh) for part in parts)
+    states = sum(torch.einsum("bcjhp,bcjhn->bchpn", part, Bh) for part in parts)[..., :p, :]
 
     # 2. state passing
     state = torch.zeros_like(states[:, 0])

@@ -419,7 +419,10 @@ def main() -> int:
                              "shape": Shape(shape, SHAPES[shape].kind, 64, rows)}
                 rec = run_cell(arch, shape, mesh, microbatches=args.microbatches, **small)
                 rec["tunable_overrides"] = args.set
-                path.write_text(json.dumps(rec, indent=1))
+                # whole or not at all: a reader may be waiting for the file
+                tmp = path.with_name(path.name + ".tmp")
+                tmp.write_text(json.dumps(rec, indent=1))
+                tmp.replace(path)
                 dt = time.perf_counter() - t0
                 msg = rec["status"]
                 if rec["status"] == "ok":

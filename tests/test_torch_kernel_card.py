@@ -240,6 +240,9 @@ SSD_SHAPES = [           # (b, s, h, p, n, g)
     (2, 24, 8, 16, 16, 1),       # the reduced configs' shape
     (1, 256, 48, 64, 128, 1),    # the `kernels` campaign grid's two SSD cells
     (2, 512, 48, 64, 128, 1),
+    (2, 1024, 25, 8, 16, 1),     # P 8: hymba-1.5b's head-dim shard on a model axis of 16
+    (1, 300, 25, 8, 16, 1),      # ... ragged, a ragged head block
+    (2, 200, 8, 8, 128, 2),      # ... at N 128, G 2
 ]
 
 
@@ -382,7 +385,7 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda, bad):
         dt = dt.to(torch.bfloat16)
     elif bad == "chunk":
         kw = {"chunk": 128}
-    elif bad == "tc_head_dim":    # ssd_tc is compiled for head dims 16, 32, 64, 128
+    elif bad == "tc_head_dim":    # ssd_tc is compiled for head dims 8, 16, 32, 64, 128
         x = torch.zeros((1, 16, 4, 48), dtype=x.dtype, device=cuda)
     elif bad == "unaligned":      # ssd_tc copies x in 16-byte pieces
         x = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)

@@ -297,8 +297,8 @@ def _kernel_call(op: str, device: str, head_dim: int):
 
 @pytest.mark.parametrize("op", ["flash_attention", "ssd"])
 def test_only_a_meta_trace_takes_the_plain_version_where_no_kernel_is_built(op):
-    """A local shape no kernel is built for (head dim 4, as hymba's SSD
-    head-dim shard on ``single``): a ``meta`` trace runs it plain and counts
+    """A local shape no kernel is built for (head dim 4, which no config's
+    shard yields): a ``meta`` trace runs it plain and counts
     it as ``no_kernel``; a CPU tensor goes to the kernel's wrapper, which
     takes its plain version on the CPU as for any shape, and counts as
     ``kernel``; on a CUDA tensor the wrapper raises (chip_smoke's

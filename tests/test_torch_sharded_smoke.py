@@ -148,7 +148,8 @@ def _records(tmp_path, chip_smoke, fault=None):
 def test_the_sharded_sweep_is_checked(chip_smoke, tmp_path):
     _records(tmp_path, chip_smoke)
     out = chip_smoke.check_dryrun_sharded(tmp_path)
-    assert len(out["records"]) == 6 and len(out["entries"]) == 1
+    assert len(out["records"]) == 2 * len(chip_smoke.DRYRUN_SHARDED) == 8
+    assert len(out["entries"]) == 1
 
 
 @pytest.mark.parametrize("fault", ["error", "missing", "no_collective", "opt_not_halved",
