@@ -1,0 +1,7 @@
+"""Mean device milliseconds of the ``train.backward`` spans per train step in the
+window (CUDA events at each end of the span)."""
+from perfbench.lib.spans import train_phase_ms
+
+
+def value(rec):
+    return train_phase_ms(rec, "train.backward")

@@ -19,20 +19,35 @@ the context:
 The first two flow through the same :class:`TelemetryEmitter` onto the
 shared-memory channel in the packed binary schema of
 :mod:`repro_torch.core.codegen`.
+
+Spans say where a step's time goes inside the program: :func:`span` names a
+stretch (``serve.admit``, ``serve.decode``, ``serve.sync`` in the server;
+``train.forward``, ``train.backward``, ``train.optimizer`` in the train
+step) and counts the work done in it.  Tracing is on while a
+``torch.profiler`` session records (each span then also enters
+``record_function``, so the device trace names what the host was doing) or
+after :func:`set_tracing`; otherwise a span is one flag check.  Finished
+spans wait in a bounded in-memory store; :func:`spans` reads those of an
+interval of host time, and a span's device time is resolved when read.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 import os
+import sys
+import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional, Sequence
 
 from .channel import MlosChannel
 from .codegen import pack_telemetry
 from .registry import ComponentMeta
 
 __all__ = ["os_counters", "compile_cache_counters", "op_counters", "TelemetryEmitter",
-           "Stopwatch"]
+           "span", "spans", "set_tracing", "clear_spans", "profiler_recording", "spans_dropped",
+           "Span", "NO_SPAN"]
 
 
 def compile_cache_counters() -> Dict[str, float]:
@@ -338,15 +353,204 @@ def op_counters(fn: Any, *args: Any, device_mesh: Any = None, **kwargs: Any) -> 
             "ops": float(counting.ops)}
 
 
-class Stopwatch:
-    """Context manager timing a critical section (the app metric of the paper)."""
+# =============================================================================
+# Spans: where the program's host and device time goes
+# =============================================================================
+SPAN_CAPACITY = 1 << 14          # finished spans the store keeps; the oldest go first
 
-    def __enter__(self) -> "Stopwatch":
+
+def profiler_recording() -> bool:
+    """Whether a ``torch.profiler`` session records now: torch's own flag,
+    read without importing torch (no profiler runs before torch is loaded)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _cuda_event(device: Any) -> Any:
+    """A timing event recorded now on CUDA ``device``'s current stream; None
+    while the current stream is capturing a graph."""
+    torch = sys.modules["torch"]
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class Span:
+    """One stretch of the program, made by :func:`span` while tracing is on:
+    its ``name``, ``id``, the ``parent`` span's id (0 at the top of its
+    thread), host start and end ``t0``/``t1`` on ``time.perf_counter``,
+    ``counts`` of the work done in it and ``stamps``, host times of named
+    moments inside it.  For work on a CUDA ``device`` it records an event at
+    each end on that device's current stream; :attr:`device_ms` is the
+    device time between them.
+    While a profiler records it is also a ``record_function`` range, so it
+    sits on the device trace's own clock."""
+
+    __slots__ = ("name", "id", "parent", "t0", "t1", "counts", "stamps", "_device", "_events",
+                 "_ms", "_annotation")
+
+    def __init__(self, name: str, device: Any, counts: Dict[str, float]):
+        self.name, self.counts = name, counts
+        self._device = device if device is not None and device.type == "cuda" else None
+        self.id = next(_SPAN_IDS)
+        self.parent = 0
+        self.t0 = self.t1 = 0.0
+        self.stamps: Dict[str, float] = {}
+        self._events: Optional[List[Any]] = None
+        self._ms: Optional[float] = None
+        self._annotation: Any = None
+
+    def __enter__(self) -> "Span":
+        stack = _open_spans()
+        self.parent = stack[-1].id if stack else 0
+        stack.append(self)
+        if profiler_recording():
+            self._annotation = sys.modules["torch"].profiler.record_function(self.name)
+            self._annotation.__enter__()
         self.t0 = time.perf_counter()
+        start = None if self._device is None else _cuda_event(self._device)
+        self._events = None if start is None else [start, None]
         return self
 
     def __exit__(self, *exc: Any) -> None:
-        self.elapsed_s = time.perf_counter() - self.t0
+        if self._events is not None:
+            self._events[1] = _cuda_event(self._device)
+        self.t1 = time.perf_counter()
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+            self._annotation = None
+        _open_spans().pop()
+        _STORE.keep(self)
+
+    def count(self, **counts: float) -> None:
+        """Add ``counts`` to the span's."""
+        for k, v in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
+
+    def stamp(self, key: str, t: float) -> None:
+        """Keep host time ``t`` under ``key``."""
+        self.stamps[key] = t
+
+    def mark_launch(self) -> None:
+        """The span's first device launch comes next.  At the first call the
+        host time is stamped as ``launch`` and the device time restarts here,
+        so host work before it (while the device may idle) is left out."""
+        if "launch" in self.stamps:
+            return
+        self.stamps["launch"] = time.perf_counter()
+        if self._events is not None:
+            start = _cuda_event(self._device)
+            if start is not None:
+                self._events[0] = start
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        """Milliseconds on the device between the span's two events (waits
+        for the second); None for work off CUDA, or where an end fell in a
+        capture."""
+        if self._ms is None and self._events is not None and self._events[1] is not None:
+            start, end = self._events
+            end.synchronize()
+            self._ms = start.elapsed_time(end)
+            self._events = None
+        return self._ms
+
+
+class _NoSpan:
+    """What :func:`span` returns while tracing is off: every call does nothing."""
+
+    __slots__ = ()
+    device_ms = None
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        return None
+
+    def count(self, **counts: float) -> None:
+        return None
+
+    def stamp(self, key: str, t: float) -> None:
+        return None
+
+    def mark_launch(self) -> None:
+        return None
+
+
+NO_SPAN = _NoSpan()
+
+
+class SpanStore:
+    """The finished spans, at most ``capacity``: a full store lets its oldest
+    span go and counts it in ``dropped``."""
+
+    def __init__(self, capacity: int):
+        self._spans: Deque[Span] = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self.dropped = 0
+
+    def keep(self, s: Span) -> None:
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped += 1
+            self._spans.append(s)
+
+    def between(self, since: Optional[float], until: Optional[float]) -> List[Span]:
+        with self._lock:
+            return [s for s in self._spans if (since is None or s.t0 >= since)
+                    and (until is None or s.t0 < until)]
+
+
+_TRACING = False                 # set_tracing(True): record without a profiler too
+_STORE = SpanStore(SPAN_CAPACITY)
+_SPAN_IDS = itertools.count(1)
+_LOCAL = threading.local()
+
+
+def _open_spans() -> List[Span]:
+    """This thread's open spans, innermost last."""
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+def set_tracing(on: bool) -> None:
+    """Record spans always (``on``), or only while a profiler records (the
+    default)."""
+    global _TRACING
+    _TRACING = bool(on)
+
+
+def clear_spans() -> None:
+    """Empty the store of finished spans and its dropped count."""
+    global _STORE
+    _STORE = SpanStore(SPAN_CAPACITY)
+
+
+def span(name: str, device: Any = None, **counts: float) -> Any:
+    """A context manager around one stretch of the program (see
+    :class:`Span`) whose work goes to ``device`` (a ``torch.device``; device
+    time is kept for CUDA alone), starting from ``counts``.  While tracing
+    is off it costs one flag check and returns a shared object that does
+    nothing."""
+    if not _TRACING and not profiler_recording():
+        return NO_SPAN
+    return Span(name, device, counts)
+
+
+def spans(since: Optional[float] = None, until: Optional[float] = None) -> List[Span]:
+    """The finished spans kept that started in ``[since, until)`` on
+    ``time.perf_counter``, in the order they finished."""
+    return _STORE.between(since, until)
+
+
+def spans_dropped() -> int:
+    """Finished spans the store let go since it was last emptied."""
+    return _STORE.dropped
 
 
 class TelemetryEmitter:

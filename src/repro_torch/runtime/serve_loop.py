@@ -44,6 +44,19 @@ ints, the first token of a prefill stays a device tensor written into its
 slot, and host data goes to the device only as copies (prompt tokens, the
 slot index, the done mask).
 
+Spans (:func:`repro_torch.core.telemetry.span`; one flag check each while
+tracing is off): a continuous :meth:`BatchedServer.step` is at most three,
+``serve.admit`` (popping, padding, the copies and the admission launches;
+its device time starts at the first launch, whose host time it stamps as
+``launch``; it counts ``requests``, ``kept`` prompt tokens and ``padded``
+widths), ``serve.decode`` (the ``sync_interval`` decode launches, counted
+as ``steps``) and ``serve.sync`` (the fetch, stamped as ``fetched``, and
+the bookkeeping after it).  Gang mode uses the same names for its
+admission (with no ``launch`` stamp), each decode step and each fetch.
+Each request keeps two stamps whatever the tracing: ``admitted_at``, when
+it left the queue, and ``first_token_at``, the fetch that delivered its
+first token.
+
 Compiled steps.  The reference builds four sites through ``cached_jit``;
 here each goes through :func:`repro_torch.core.compilecache.cached_step`
 with the reference's key and context: ``serve.prefill``,
@@ -93,6 +106,7 @@ from ..core import compilecache
 from ..core.compilecache import Graphs, cached_step, config_signature
 from ..core.configstore import bucket_pow2
 from ..core.registry import MetricSpec, tunable_component
+from ..core.telemetry import span
 from ..core.tunable import Int
 from ..models import model as M
 from ..models.config import ModelConfig
@@ -239,6 +253,8 @@ class _Request:
     finished_at: float = 0.0
     slot: int = -1
     eff_budget: int = 0                     # resolved (clipped) budget at admission
+    admitted_at: Optional[float] = None     # popped from the queue (time.perf_counter)
+    first_token_at: Optional[float] = None  # the fetch that delivered its first token
 
 
 class BatchedServer:
@@ -377,17 +393,16 @@ class BatchedServer:
         return max(2, bucket_pow2(keep))
 
     def _pad_prompts(self, reqs: List[_Request], rows: int, width: int) -> torch.Tensor:
-        """Left-pad (token 0) each prompt's tail into a (rows, width) device
-        tensor; the host buffer is pinned so the copy does not block."""
+        """Left-pad (token 0) each prompt's tail into a (rows, width) host
+        tensor, pinned on CUDA so that the copy to the device does not
+        block."""
         toks = np.zeros((rows, width), np.int64)
         for i, r in enumerate(reqs):
             n = min(len(r.prompt), width)
             if n:
                 toks[i, -n:] = r.prompt[-n:]  # left-pad; keep the prompt tail
         host = torch.from_numpy(toks)
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
+        return host.pin_memory() if self.device.type == "cuda" else host
 
     def _eff_budget(self, r: _Request, width: int) -> int:
         b = r.budget or self._budget_override or self.max_new_tokens
@@ -406,10 +421,11 @@ class BatchedServer:
                               if self.cfg.family in ("encdec", "vlm") else None)
         return st.modal[rows]
 
-    def _run_admission(self, reqs: List[_Request], rows: int, width: int,
-                       slots: torch.Tensor) -> None:
-        """One admission program: prefill ``reqs`` (padded to ``rows``) at
-        ``width`` and install row i into ``slots[i]`` of the state."""
+    def _run_admission(self, host: torch.Tensor, slots: torch.Tensor) -> None:
+        """One admission program: prefill the padded prompts ``host`` (rows,
+        width; :meth:`_pad_prompts`) and install row i into ``slots[i]`` of
+        the state."""
+        rows, width = host.shape
         st = self._st
         if st.caches is None:
             st.caches = M.init_cache(self.cfg, self.max_batch, self.capacity, self._enc_len,
@@ -419,7 +435,7 @@ class BatchedServer:
         if prompts is None:
             prompts = st.prompts[key] = torch.zeros((rows, width), dtype=torch.long,
                                                     device=self.device)
-        prompts.copy_(self._pad_prompts(reqs, rows, width))
+        prompts.copy_(host.to(self.device, non_blocking=True))
         bound = st.admit.get(key)
         if bound is None:
             bound = st.admit[key] = st.graphs.bind(
@@ -431,28 +447,36 @@ class BatchedServer:
 
     def _admit(self) -> int:
         """Prefill waiting requests into free slots; bounded per step by the
-        ``admission`` count and the ``prefill_chunk`` width budget."""
-        admitted, token_budget = 0, self.prefill_chunk
-        while self._free and self.queue and admitted < self.admission:
-            width = self._width_of(len(self.queue[0].prompt))
-            if admitted and token_budget < width:
-                break                        # chunk full; never starves (>=1 admitted)
-            r = self.queue.popleft()
-            token_budget -= width
-            admitted += 1
-            self._free.sort()
-            slot = self._free.pop(0)
-            self._prefill_into(slot, r, width)
+        ``admission`` count and the ``prefill_chunk`` width budget.  The
+        ``serve.admit`` span counts the requests, their kept prompt tokens
+        and the padded widths prefilled."""
+        admitted, kept, padded = 0, 0, 0
+        with span("serve.admit", self.device) as sp:
+            while self._free and self.queue and admitted < self.admission:
+                width = self._width_of(len(self.queue[0].prompt))
+                if admitted and padded + width > self.prefill_chunk:
+                    break                        # chunk full; never starves (>=1 admitted)
+                r = self.queue.popleft()
+                r.admitted_at = time.perf_counter()
+                admitted += 1
+                kept += min(len(r.prompt), width)
+                padded += width
+                self._free.sort()
+                slot = self._free.pop(0)
+                host = self._pad_prompts([r], 1, width)
+                sp.mark_launch()
+                self._prefill_into(slot, r, host)
+            sp.count(requests=admitted, kept=kept, padded=padded)
         return admitted
 
-    def _prefill_into(self, slot: int, r: _Request, width: int) -> None:
+    def _prefill_into(self, slot: int, r: _Request, host: torch.Tensor) -> None:
         # install IN PLACE: the slot's cache rows and (tok, pos, done)
         # registers.  The first token stays on device: it flows into the
         # decode stream and reaches the host with the next batched sync.
         self._st.slot.fill_(slot)
-        self._run_admission([r], 1, width, self._st.slot)
+        self._run_admission(host, self._st.slot)
         r.slot = slot
-        r.eff_budget = self._eff_budget(r, width)
+        r.eff_budget = self._eff_budget(r, host.shape[1])
         self._slot_req[slot] = r
 
     def _bound_decode(self, key: str) -> Any:
@@ -519,27 +543,34 @@ class BatchedServer:
         if not self._n_live():
             return []
         n = self.sync_interval
-        for _ in range(n):
-            # each step CONSUMES the tok register and records it in the history, so
-            # the history's rows are exactly the generated-token stream, the
-            # prefill's first token included, with no extra host reads
-            self._decode()
-            self.decode_steps += 1
-            self._run_steps += 1
-        finished = self._sync(n)
-        self._emit_rolling()
+        with span("serve.decode", self.device, steps=n):
+            for _ in range(n):
+                # each step CONSUMES the tok register and records it in the history, so
+                # the history's rows are exactly the generated-token stream, the
+                # prefill's first token included, with no extra host reads
+                self._decode()
+                self.decode_steps += 1
+                self._run_steps += 1
+        with span("serve.sync", self.device) as sp:
+            finished, fetched = self._sync(n)
+            sp.stamp("fetched", fetched)
+            self._emit_rolling()
         return finished
 
-    def _sync(self, n: int) -> List[_Request]:
+    def _sync(self, n: int) -> Tuple[List[_Request], float]:
+        """Read the last ``n`` decode steps' tokens back and finish requests;
+        returns those and the moment the tokens reached the host."""
         self.decode_syncs += 1
         self._run_syncs += 1
         toks_h = _host_fetch(self._st.hist[:n])                # (sync_interval, max_batch)
-        self._st.hist_row.zero_()
         now = time.perf_counter()
+        self._st.hist_row.zero_()
         finished: List[_Request] = []
         for slot, r in enumerate(self._slot_req):
             if r is None:
                 continue
+            if r.first_token_at is None:
+                r.first_token_at = now
             for t in range(toks_h.shape[0]):
                 tok = int(toks_h[t, slot])
                 r.tokens.append(tok)
@@ -554,7 +585,7 @@ class BatchedServer:
             mask = np.zeros((self.max_batch,), bool)
             mask[[r.slot for r in finished]] = True
             self._st.done.logical_or_(torch.from_numpy(mask).to(self.device))
-        return finished
+        return finished, now
 
     def _finish(self, r: _Request, now: float) -> None:
         r.done = True
@@ -594,35 +625,44 @@ class BatchedServer:
         """Static-batching baseline: admit a batch, decode until every member
         finishes (or budgets out), sync every token."""
         while self.queue:
-            live = [self.queue.popleft()
-                    for _ in range(min(self.max_batch, len(self.queue)))]
-            width = self._width_of(max(len(r.prompt) for r in live))
-            self._run_admission(live, self.max_batch, width, self._st.all_slots)
-            budgets = [self._eff_budget(r, width) for r in live]
-            t_host = _host_fetch(self._st.tok)
-            self.decode_syncs += 1
-            self._run_syncs += 1
-            for i, r in enumerate(live):
-                r.tokens.append(int(t_host[i]))
-                self._win_tokens += 1
-                if r.tokens[-1] == self.eos_id or len(r.tokens) >= budgets[i]:
-                    r.done = True
+            with span("serve.admit", self.device) as sp:
+                live = [self.queue.popleft()
+                        for _ in range(min(self.max_batch, len(self.queue)))]
+                now = time.perf_counter()
+                for r in live:
+                    r.admitted_at = now
+                width = self._width_of(max(len(r.prompt) for r in live))
+                self._run_admission(self._pad_prompts(live, self.max_batch, width),
+                                    self._st.all_slots)
+                budgets = [self._eff_budget(r, width) for r in live]
+                sp.count(requests=len(live), kept=sum(min(len(r.prompt), width) for r in live),
+                         padded=self.max_batch * width)
+            with span("serve.sync", self.device) as sp:
+                t_host, now = self._gang_fetch()
+                sp.stamp("fetched", now)
+                for i, r in enumerate(live):
+                    r.first_token_at = now
+                    r.tokens.append(int(t_host[i]))
+                    self._win_tokens += 1
+                    if r.tokens[-1] == self.eos_id or len(r.tokens) >= budgets[i]:
+                        r.done = True
             for _ in range(max(budgets) - 1):
                 if all(r.done for r in live):
                     break
-                self._bound_decode("serve.decode_step")()
-                self.decode_steps += 1
-                self._run_steps += 1
-                t_host = _host_fetch(self._st.tok)   # the per-token sync the
-                self.decode_syncs += 1        # continuous engine amortizes
-                self._run_syncs += 1
-                for i, r in enumerate(live):
-                    if not r.done:
-                        nxt = int(t_host[i])
-                        r.tokens.append(nxt)
-                        self._win_tokens += 1
-                        if nxt == self.eos_id or len(r.tokens) >= budgets[i]:
-                            r.done = True
+                with span("serve.decode", self.device, steps=1):
+                    self._bound_decode("serve.decode_step")()
+                    self.decode_steps += 1
+                    self._run_steps += 1
+                with span("serve.sync", self.device) as sp:
+                    t_host, now = self._gang_fetch()   # the per-token sync the
+                    sp.stamp("fetched", now)           # continuous engine amortizes
+                    for i, r in enumerate(live):
+                        if not r.done:
+                            nxt = int(t_host[i])
+                            r.tokens.append(nxt)
+                            self._win_tokens += 1
+                            if nxt == self.eos_id or len(r.tokens) >= budgets[i]:
+                                r.done = True
             now = time.perf_counter()
             for r in live:                    # gang: nobody leaves early
                 r.done = True
@@ -631,6 +671,15 @@ class BatchedServer:
                 self._run_completed.append(r)
                 self._win_completed.append(r)
             self._emit_rolling()
+
+    def _gang_fetch(self) -> Tuple[np.ndarray, float]:
+        """Gang mode's read of every row's token, and the moment it reached
+        the host."""
+        t_host = _host_fetch(self._st.tok)
+        now = time.perf_counter()
+        self.decode_syncs += 1
+        self._run_syncs += 1
+        return t_host, now
 
     # -------------------------------------------------------------- metrics
     def _metrics(self, completed: List[_Request], dt: float) -> Dict[str, float]:

@@ -11,7 +11,11 @@ registry holds it (:func:`repro_torch.core.compilecache.cached_step`, key
 ``train.step``), keyed as the reference keys its jitted step: the config's
 signature, the hyperparameters baked into the step and the microbatch
 count.  The step runs eagerly; ``lr_scale`` is an argument of every call,
-so the MLOS agent retunes it live without a rebuild.
+so the MLOS agent retunes it live without a rebuild.  Its phases are spans
+(:func:`repro_torch.core.telemetry.span`): ``train.forward`` (the compute
+cast and the loss) and ``train.backward`` (the gradient, added into the
+float32 accumulators with microbatches) once a microbatch, then
+``train.optimizer`` (the schedule and AdamW, clip included).
 
 State = ``{"params": tree, "opt": {"m", "v", "count"}, "step": 0-d int32
 tensor}``, parameters in the compute dtype and float32 moments
@@ -26,6 +30,7 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
+from ..core.telemetry import span
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.layers import P, dtype_of
@@ -84,15 +89,25 @@ class TrainHyper:
         return (self.base_lr, self.warmup, self.total, self.weight_decay, self.clip_norm)
 
 
-def _value_and_grad(cfg: ModelConfig, params: Any, batch: Dict[str, torch.Tensor]):
-    """(loss, parts, grads in the parameters' dtypes)."""
+def _value_and_grad(cfg: ModelConfig, params: Any, batch: Dict[str, torch.Tensor],
+                    into: Any = None):
+    """(loss, parts, grads in the parameters' dtypes), in a ``train.forward``
+    and a ``train.backward`` span; with ``into`` (float32 accumulators of
+    the parameters' tree) the gradients are added to it in the backward,
+    and ``into`` is returned as the grads."""
+    dev = batch["tokens"].device
     with torch.enable_grad():
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, parts = M.loss_fn(cast_for_compute(live, cfg), cfg, batch)
-        grads = torch.autograd.grad(loss, leaves(live))
+        with span("train.forward", dev):
+            live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+            loss, parts = M.loss_fn(cast_for_compute(live, cfg), cfg, batch)
+        with span("train.backward", dev):
+            grads = torch.autograd.grad(loss, leaves(live))
+            if into is not None:
+                for acc, g in zip(leaves(into), grads):
+                    acc.add_(g)
     it = iter(grads)
-    return loss.detach(), {k: v.detach() for k, v in parts.items()}, tree_map(lambda _: next(it),
-                                                                             params)
+    return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+            into if into is not None else tree_map(lambda _: next(it), params))
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
@@ -130,20 +145,22 @@ def make_train_step(cfg: ModelConfig, hyper: Optional[TrainHyper] = None, *,
             lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for i in range(microbatches):
                 mb = {k: shd.row_block(v, i, microbatches) for k, v in batch.items()}
-                l, _, g = _value_and_grad(cfg, params, mb)
-                for acc, gi in zip(leaves(grads), leaves(g)):
-                    acc.add_(gi)
+                l, _, _ = _value_and_grad(cfg, params, mb, into=grads)
                 lsum = lsum + l
-            grads = tree_map(lambda g: g / microbatches, grads)
-            loss = lsum / microbatches
-            parts = {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=loss.device)}
-        lr = warmup_cosine(state["step"], hyper.base_lr, hyper.warmup, hyper.total)
-        lr = lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=lr.device)
-        params, opt, ostats = adamw_update(grads, state["opt"], params, lr=lr,
-                                           weight_decay=hyper.weight_decay,
-                                           clip_norm=hyper.clip_norm)
+        with span("train.optimizer", batch["tokens"].device):
+            if microbatches > 1:
+                grads = tree_map(lambda g: g / microbatches, grads)
+                loss = lsum / microbatches
+                parts = {"ce": loss,
+                         "aux": torch.zeros((), dtype=torch.float32, device=loss.device)}
+            lr = warmup_cosine(state["step"], hyper.base_lr, hyper.warmup, hyper.total)
+            lr = lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=lr.device)
+            params, opt, ostats = adamw_update(grads, state["opt"], params, lr=lr,
+                                               weight_decay=hyper.weight_decay,
+                                               clip_norm=hyper.clip_norm)
+            step = state["step"] + 1
         metrics = {"loss": loss, "lr": lr, **ostats, **parts}
-        return {"params": params, "opt": opt, "step": state["step"] + 1}, metrics
+        return {"params": params, "opt": opt, "step": step}, metrics
 
     return train_step
 

@@ -245,22 +245,27 @@ def test_os_counters_persistent_handles():
 def test_emitter_packs_and_drops_instead_of_blocking():
     from repro_torch.core.codegen import unpack_telemetry
     from repro_torch.core.registry import get_component
-    from repro_torch.core.telemetry import Stopwatch, TelemetryEmitter
+    from repro_torch.core import telemetry
+    from repro_torch.core.telemetry import TelemetryEmitter
     from repro_torch.runtime import train_loop  # noqa: F401 — registers torch_train_loop
 
     meta = get_component("torch_train_loop")
     chan = MlosChannel.create(capacity=1 << 8)
+    telemetry.set_tracing(True)
     try:
         em = TelemetryEmitter(meta, chan, instance_id=3)
-        with Stopwatch() as sw:
+        with telemetry.span("emit_many", records=20) as sp:
             sent = em.emit_many([{"loss": float(i), "step_time_s": 0.5, "extra": 1}
                                  for i in range(20)])
-        assert sw.elapsed_s >= 0 and 0 < sent < 20 and em.dropped == 20 - sent
+        assert sp.t1 >= sp.t0 and 0 < sent < 20 and em.dropped == 20 - sent
+        assert telemetry.spans(sp.t0)[-1] is sp and sp.counts == {"records": 20}
         assert not em.emit({"loss": 9.0, "step_time_s": 1.0}) and em.dropped == 21 - sent
         rows = [unpack_telemetry(meta, p) for p in chan.telemetry.drain()]
         assert [r["loss"] for r in rows] == [float(i) for i in range(sent)]
         assert {r["instance_id"] for r in rows} == {3}
     finally:
+        telemetry.set_tracing(False)
+        telemetry.clear_spans()
         chan.close()
 
 
